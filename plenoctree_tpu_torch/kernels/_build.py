@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _NAME_LOCKS
+_NAME_LOCKS = {}  # one lock per library: different libraries build in parallel
 _LIBS = {}
 build_logs = {}  # name -> nvcc/ptxas output of the build done in this process
 
@@ -46,8 +47,11 @@ def _nvcc():
 
 
 def load_library(name, sources):
-    """Compile csrc/<sources> into one shared library (once) and load it."""
+    """Compile csrc/<sources> into one shared library (once) and load it.
+    Calls for different names may run in parallel threads."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         paths = [CSRC / s for s in sources]

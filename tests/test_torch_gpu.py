@@ -1,4 +1,4 @@
-"""The CUDA tile kernel on the card (marked `gpu`; skips without CUDA).
+"""The CUDA kernels on the card (marked `gpu`; skips without CUDA).
 
 This file imports no JAX, so it also runs where the JAX stack is absent;
 tests/conftest.py imports jax, so run it there without the conftest:
@@ -11,12 +11,20 @@ import pytest
 import torch
 
 from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
+from plenoctree_tpu_torch.kernels import fused_mlp as F
 from plenoctree_tpu_torch.kernels import tile_composite as K
+from plenoctree_tpu_torch.models.params import init_trunk_params, trunk_weights
 from plenoctree_tpu_torch.octree.tile_render import TileRenderer
 
 # Kernel vs plain version on the same inputs (see chip_smoke.py): the sums
 # run in different orders, hit tests and precedence are identical.
 ATOL = 5e-5
+# Fused trunk kernels vs their plain versions (same bf16 rounding points;
+# f32 sums in another order can round a bf16 activation the other way):
+# the JAX package's kernel-test bounds (tests/test_kernels.py). chip_smoke.py
+# holds the bench shapes to the tighter bounds measured there.
+TRUNK_FWD_ATOL = 2e-2
+TRUNK_GRAD_RTOL = 0.05
 
 
 def _need_cuda():
@@ -69,3 +77,118 @@ def test_wrapper_rejects_bad_inputs():
         K.composite_tiles(*p2[:5], p2[5].double(), *p2[6:], r.index["soa"], **r._kernel_kw)
     with pytest.raises(ValueError):
         K.composite_tiles(*p2[:5], p2[5].cpu(), *p2[6:], r.index["soa"], **r._kernel_kw)
+
+
+def _trunk(depth, width, n_rgb, seed, device="cuda"):
+    params = init_trunk_params(np.random.default_rng(seed), 63, depth, width, 4, 1, n_rgb, 0.05)
+    return trunk_weights(params, 4, device)
+
+
+def _grad_rel_errs(got, want):
+    return [float((a - b).abs().max() / (b.abs().max() + 1e-9)) for a, b in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 10000])
+def test_fused_trunk_matches_reference(n):
+    _need_cuda()
+    flat, meta = _trunk(8, 256, 48, seed=n)
+    rng = np.random.default_rng(n + 1)
+    x = torch.tensor(rng.normal(size=(n, 63)), dtype=torch.float32, device="cuda")
+    gs = torch.tensor(rng.normal(size=(n, 1)), dtype=torch.float32, device="cuda")
+    gr = torch.tensor(rng.normal(size=(n, 48)), dtype=torch.float32, device="cuda")
+    f0, b0 = F.fwd_launches, F.bwd_launches
+    s, r = F.fused_trunk(flat, x, meta)
+    grads = F.fused_trunk_bwd(flat, x, gs, gr, meta)
+    torch.cuda.synchronize()
+    assert (F.fwd_launches, F.bwd_launches) == (f0 + 1, b0 + 1)
+    rs, rr = F.fused_trunk_reference(flat, x, meta)
+    assert float((s - rs).abs().max()) <= TRUNK_FWD_ATOL
+    assert float((r - rr).abs().max()) <= TRUNK_FWD_ATOL
+    ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta)
+    assert [g.shape for g in grads] == [g.shape for g in ref]
+    assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    again = F.fused_trunk_bwd(flat, x, gs, gr, meta)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_fused_trunk_autograd_on_cuda():
+    _need_cuda()
+    flat, meta = _trunk(6, 64, 12, seed=3)
+    x = torch.randn(1500, 63, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    w = [t.clone().requires_grad_() for t in flat]
+    s, r = F.FusedTrunkFn.apply(meta, x, *w)
+    (s.square().sum() + r.sum()).backward()
+    ref = F.fused_trunk_bwd_reference(flat, x, 2 * s.detach(), torch.ones_like(r), meta)
+    assert max(_grad_rel_errs([t.grad for t in w], ref)) <= TRUNK_GRAD_RTOL
+
+
+@pytest.mark.gpu
+def test_fused_trunk_rejects_bad_inputs():
+    _need_cuda()
+    flat, meta = _trunk(6, 64, 12, seed=4)
+    x = torch.randn(100, 63, device="cuda")
+    with pytest.raises(TypeError):
+        F.fused_trunk(flat, x.double(), meta)
+    with pytest.raises(TypeError):
+        F.fused_trunk([t.half() for t in flat], x, meta)
+    with pytest.raises(ValueError):
+        F.fused_trunk(flat, x.cpu(), meta)
+    for bad in ({"posenc": (0, 10)}, {"sh_dim": 16}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            F.fused_trunk(flat, x, dict(meta, **bad))
+    # A layout the kernels cannot take (width over 256): the C side refuses it.
+    wide, wide_meta = _trunk(2, 320, 12, seed=5)
+    g = torch.ones(100, 13, device="cuda")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        F.fused_trunk(wide, x, wide_meta)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        F.fused_trunk_bwd(wide, x, g[:, :1], g[:, 1:], wide_meta)
+
+
+@pytest.mark.gpu
+def test_train_steps_on_cuda_match_cpu():
+    """Two train steps with the fused kernels on the card against the same
+    two steps on the CPU (plain versions), same weights, rays and draws."""
+    _need_cuda()
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.data.rays import Rays
+    from plenoctree_tpu_torch.models.nerf import construct_nerf
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt
+    from plenoctree_tpu_torch.utils.config import default_config
+
+    cfg = default_config(
+        net_depth=6, net_width=64, sh_deg=1, use_viewdirs=False, num_coarse_samples=16,
+        num_fine_samples=16, batch_size=256, sparsity_npoints=1000, randomized=False,
+        compute_dtype="bfloat16", use_pallas=True, lr_init=5e-4,
+    )
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(256, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.normal(size=(256, 3)) * 0.3 - o / 4.0
+    host = {
+        "rays": [o, d, d / np.linalg.norm(d, axis=-1, keepdims=True)],
+        "pixels": rng.uniform(size=(256, 3)), "sp": rng.uniform(-1.5, 1.5, (1000, 3)),
+    }
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        model = construct_nerf(cfg, seed=3).to(dev)
+        state = ckpt.create_train_state(model)
+        step = engine.make_train_step(model, cfg)
+        batch = {"rays": Rays(*map(t, host["rays"])), "pixels": t(host["pixels"])}
+        f0 = F.fwd_launches
+        stats = [step(state, batch, None, {"sp_points": t(host["sp"])})[1] for _ in range(2)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert F.fwd_launches > f0
+        runs[dev] = ([float(s.loss) for s in stats], {k: v.detach().cpu() for k, v in state.params.items()})
+    (loss_cpu, p_cpu), (loss_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    # Step 1 starts from equal weights: the kernels' bf16 rounding only.
+    np.testing.assert_allclose(loss_gpu[0], loss_cpu[0], rtol=2e-3)
+    # Adam normalises each step to ~lr, so a near-zero gradient that differs
+    # in sign moves a weight by up to 2 lr per step; step 2's loss then
+    # differs by more (measured 2.6e-3 relative on the H100).
+    np.testing.assert_allclose(loss_gpu[1], loss_cpu[1], rtol=1e-2)
+    assert max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu) <= 4 * 5e-4 + 1e-6

@@ -1,7 +1,9 @@
 """The port runs on a machine without the JAX package's dependencies: with
-jax, flax, msgpack, absl, yaml, PIL and imageio blocked, the shared tree
-contract (`N3Tree`, `native`) and the whole serving slice import and render
-a frame on the CPU, and jax stays unimported."""
+jax, flax, msgpack, absl, yaml, PIL, imageio and tensorboardX blocked, the
+shared tree contract (`N3Tree`, `native`) and the serving slice import and
+render a frame on the CPU, the training slice imports and runs two train
+steps through its CLI with a checkpoint save and restore, and jax stays
+unimported."""
 
 import os
 import subprocess
@@ -11,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL", "imageio"):
+for name in ("jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL", "imageio", "tensorboardX"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
@@ -50,13 +52,65 @@ print("OK")
 """
 
 
-def test_slice_imports_and_renders_without_jax_stack():
+_TRAIN_SCRIPT = r"""
+import os, sys, tempfile
+for name in ("jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL", "imageio", "tensorboardX"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import torch
+import plenoctree_tpu_torch.bench
+import plenoctree_tpu_torch.cli.train as train_cli
+import plenoctree_tpu_torch.engine
+import plenoctree_tpu_torch.kernels.fused_mlp
+import plenoctree_tpu_torch.models.mlp
+import plenoctree_tpu_torch.models.nerf
+import plenoctree_tpu_torch.models.params
+import plenoctree_tpu_torch.ops.posenc
+import plenoctree_tpu_torch.ops.rendering
+import plenoctree_tpu_torch.ops.sampling
+import plenoctree_tpu_torch.utils.checkpoints as ckpt
+import plenoctree_tpu_torch.utils.lr
+import plenoctree_tpu_torch.utils.metrics_writer as mw
+import plenoctree_tpu_torch.utils.msgpack_lite
+
+d = tempfile.mkdtemp()
+flags = [
+    "--config", "nerf_sh/config/blender", "--dataset", "synthetic", "--train_dir", d,
+    "--device", "cpu", "--use_pallas", "--compute_dtype", "bfloat16", "--image_batching",
+    "--batch_size", "32", "--net_depth", "2", "--net_width", "16", "--sh_deg", "1",
+    "--num_coarse_samples", "4", "--num_fine_samples", "4", "--sparsity_npoints", "50",
+    "--synthetic_resolution", "16", "--print_every", "1", "--render_every", "2",
+    "--chunk", "64",
+]
+model, state = train_cli.main(flags + ["--max_steps", "2", "--save_every", "2"])
+assert state.step == 2 and os.path.exists(os.path.join(d, "checkpoint_2"))
+assert len(mw.read_scalars(d, "train_psnr")) == 2 and os.listdir(os.path.join(d, "render"))
+model2, state2 = train_cli.main(flags + ["--max_steps", "3", "--save_every", "3"])
+assert state2.step == 3 and os.path.exists(os.path.join(d, "checkpoint_3"))
+restored = ckpt.restore_checkpoint(d, ckpt.create_train_state(model))
+assert restored.step == 3 and restored.opt_state["count"] == 3
+assert all(torch.equal(p, model2.state_dict()[k]) for k, p in model.state_dict().items())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def _run_blocked(script):
     env = dict(os.environ)
     env.pop("PLENOCTREE_PLATFORM", None)  # would make plenoctree_tpu import jax
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        [sys.executable, "-c", script], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+def test_slice_imports_and_renders_without_jax_stack():
+    _run_blocked(_SCRIPT)
+
+
+def test_training_slice_trains_without_jax_stack():
+    _run_blocked(_TRAIN_SCRIPT)
