@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving and
-NeRF-SH training.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving,
+NeRF-SH training and PlenOctree conversion (extraction, tile optimization).
 
     python3 chip_smoke.py
 
@@ -26,14 +26,48 @@ Phases, one line each with its wall time:
      in-process, 200 steps of the blender SH16 config at batch 4096 with the
      fused kernels; both launch counts must be > 0, the train PSNR must
      rise, and the checkpoint must restore with equal params;
-  9. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
+  9. extract main path: the extract CLI (`plenoctree_tpu_torch.cli.extract`)
+     in-process on phase 8's checkpoint_200 with the same model flags and
+     octree/config/syn_sh16.json's extraction flags at init_grid_depth 8;
+     the trunk forward kernel's launch count must be > 0 and the tree must
+     save and reload; leaf count, eval PSNR and wall-clock per step;
+ 10. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
      4096: rays/s, ms/step, peak memory, and the trunk kernels' share of
-     device time from one torch.profiler window.
+     device time from one torch.profiler window;
+ 11. tile bwd kernel vs plain: on the depth-7 tree in exact mode (the
+     optimizer's keep_all index), one 800x800 pose: the tile kernel's
+     exact-mode forward against composite_tiles_reference (KERNEL_ATOL),
+     then, on that forward output and a seeded cotangent, the tile backward
+     kernel against composite_tiles_bwd_reference: errors per field group,
+     the difference between two kernel runs, times and the pieces total;
+ 12. optimize throughput: ms per optimizer step at 800x800 on that
+     optimizer (median of 12 steps, CUDA events), peak memory, and the
+     step's device time by kernel group (forward, backward, segment-sum,
+     gather, other) from one torch.profiler window over 3 real steps, with
+     the idle share and the tile inputs' time alone;
+ 13. optimize main path: the optimize CLI (`plenoctree_tpu_torch.cli.optimize
+     --tile_opt`) in-process on the depth-7 tree with its DC colour
+     coefficients washed to 0, 12 train / 4 val synthetic views at 200x200,
+     syn_sh16's optimization flags for 2 epochs; the backward kernel's
+     launch count must be > 0, the best val PSNR must beat the initial one
+     by OPT_MIN_GAIN_DB, tree_opt.npz must load; then the eval CLI on it;
+     then a control, the same CLI run at -lr (the gradient's sign flipped),
+     which must not pass the gain check.
+
+Each kernel in the final JSON line carries its bound: the larger of the
+bytes it must move (each input read once, each output written once; for the
+tile kernels the soa blocks its pieces name, once each) over 3.35 TB/s and
+the operations this run's data needs over the card's peak for their type
+(989 TFLOP/s bf16 tensor cores for the trunk, 67 TFLOP/s f32 for the tile
+kernels, counting only the slab tests of live rows with sigma > 0 against
+the rays of their pieces' quad groups), and, for the trunk, the time of the
+same MLP as a chain of bf16 torch.nn.functional.linear + relu calls.
 
 It exits non-zero, and prints no result line, when CUDA is unavailable or
 any phase fails. The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -79,6 +113,42 @@ TRUNK_ROWS = (786432, 10000)  # the fine MLP's rows at the bench config; sparsit
 TRAIN_STEPS = 200
 BENCH_BATCH = 4096
 BENCH_STEPS = 100
+# Tile backward kernel vs plain version, per field group relative to the
+# group's largest |gradient|: the same hit tests and precedence, sums in
+# another order (measured 2.0e-7 at 800x800, H100 80GB HBM3, 700 W); two
+# kernel runs differ by the order of their float atomics (measured 1.2e-7).
+BWD_RTOL = 1e-5
+BWD_RERUN_RTOL = 2e-6
+# syn_sh16's extraction flags (octree/config/syn_sh16.json) at the default
+# init_grid_depth 8, and its optimization flags with 2 epochs.
+EXTRACT_FLAGS = [
+    "--autoscale", "--scale_alpha_thresh", "0.1", "--radius", "1.4", "--samples_per_cell", "256",
+    "--no_early_stop", "--renderer_step_size", "1e-5", "--init_grid_depth", "8",
+]
+OPT_FLAGS = [
+    "--num_epochs", "2", "--sgd", "--lr", "1e7", "--no_early_stop", "--renderer_step_size", "1e-5",
+    "--val_interval", "1",
+]
+OPT_RES = 200
+OPT_STEPS = 12
+OPT_PROFILE_STEPS = 3
+# The optimizer step's device-time split: the tile kernels by kernel name;
+# the gather of leaf data into the soa's data rows and its autograd, the
+# instance -> leaf segment-sum, by the op that launches them (the step runs
+# no other index_select or index_add_).
+OPT_STEP_KERNELS = {"backward_kernel": "tile_composite_bwd_kernel",
+                    "forward_kernel": "tile_composite_kernel"}
+OPT_STEP_OPS = {"gather": "aten::index_select", "segment_sum": "aten::index_add_"}
+# Washing the DC colour coefficients turns the leaves grey; two SGD epochs
+# over 12 views must win back at least this much val PSNR. It is the
+# midpoint of this cell's two readings on the H100: +3.51 dB with the sound
+# gradient (18.36 -> 21.87 dB in each of three runs) and +0.00 dB with the
+# gradient's sign flipped (the control run below: the best snapshot stays
+# the initial tree).
+OPT_MIN_GAIN_DB = 1.75
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
 def phase(label, t0, **fields):
@@ -163,19 +233,95 @@ def trunk_vs_plain(dev):
         fwd_plain = cuda_ms(lambda: fused_mlp.fused_trunk_reference(flat, x, meta), 3)
         bwd_ms = cuda_ms(lambda: fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta), 5)
         bwd_plain = cuda_ms(lambda: fused_mlp.fused_trunk_bwd_reference(flat, x, gs, gr, meta), 3)
+        lib_fwd, lib_bwd = trunk_library(flat, x, gs, gr, meta)
         phase(
             f"trunk kernel vs plain ({n} rows)", t0, fwd_max_abs_err=fwd_err,
             fwd_tol=TRUNK_FWD_ATOL, grad_max_rel_err=max(rel), grad_tol=TRUNK_GRAD_RTOL,
             grad_rel_per_array=[round(e, 6) for e in rel], fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain,
-            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+            bound_fwd=trunk_bound(flat, n, 1), bound_bwd=trunk_bound(flat, n, 3),
         )
         if not fwd_err <= TRUNK_FWD_ATOL:
             raise RuntimeError(f"trunk forward disagrees: {fwd_err} > {TRUNK_FWD_ATOL}")
         if not max(rel) <= TRUNK_GRAD_RTOL:
             raise RuntimeError(f"trunk backward disagrees: {max(rel)} > {TRUNK_GRAD_RTOL}")
         results[n] = dict(fwd_err=fwd_err, bwd_abs=bwd_abs, fwd_ms=fwd_ms,
-                          fwd_plain=fwd_plain, bwd_ms=bwd_ms, bwd_plain=bwd_plain)
+                          fwd_plain=fwd_plain, bwd_ms=bwd_ms, bwd_plain=bwd_plain,
+                          lib_fwd=lib_fwd, lib_bwd=lib_bwd, bound_fwd=trunk_bound(flat, n, 1),
+                          bound_bwd=trunk_bound(flat, n, 3))
     return results
+
+
+def trunk_bound(flat, n, passes):
+    """The trunk's bound at n rows: 2 flops per multiply-add of every layer
+    (passes=1 forward; 3 for the weight gradients: recompute, cotangents
+    through the layers, dW) at the bf16 tensor-core peak, against x, the
+    weights and the outputs (forward) or cotangents and weight gradients
+    (backward) in f32 once each at the memory rate."""
+    macs = sum(w.shape[0] * w.shape[1] for w in flat[0::2])
+    flops = 2.0 * n * macs * passes
+    d_in, d_out = flat[0].shape[0], flat[-1].shape[1]
+    weights = sum(w.numel() for w in flat) * 4
+    nbytes = 4.0 * n * (d_in + d_out) + weights * (1 if passes == 1 else 2)
+    return bound_of(nbytes, flops, BF16_TC_FLOPS)
+
+
+def trunk_library(flat, x, gs, gr, meta):
+    """The same MLP as a chain of bf16 torch.nn.functional.linear + relu
+    calls (cuBLAS): ms of the forward, and of forward + autograd backward to
+    the weights (the kernel's backward recomputes the forward too)."""
+    import torch.nn.functional as F
+
+    depth, skip = meta["depth"], meta["skip_layer"]
+    w = [t.t().contiguous().bfloat16().requires_grad_() for t in flat[0::2]]
+    b = [t.reshape(-1).bfloat16().requires_grad_() for t in flat[1::2]]
+    xb = x.bfloat16()
+    g = torch.cat([gs, gr], dim=-1).bfloat16()
+
+    def chain():
+        h = xb
+        for i in range(depth):
+            h = F.relu(F.linear(h, w[i], b[i]))
+            if i % skip == 0 and i > 0:
+                h = torch.cat([h, xb], dim=-1)
+        return F.linear(h, w[depth], b[depth])
+
+    def fwd():
+        with torch.no_grad():
+            chain()
+
+    def fwd_bwd():
+        torch.autograd.grad(chain(), w + b, g)
+
+    return cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 5)
+
+
+def tile_work(p2, soa, sigma_row, quantum, extra_bytes):
+    """(bytes, flops) a tile kernel needs on these phase-1 inputs: every
+    input tensor once, each soa block the pieces name once, plus
+    extra_bytes (outputs); flops: the slab test (6 FMAs) of every live
+    sigma > 0 row of every piece against the rays of the piece's quad
+    groups."""
+    meta, c0, lo, hi, mask = (t[:, 0] for t in p2[:5])
+    rays = p2[5].shape[1]
+    valid = torch.arange(c0.shape[-1], device=c0.device)[None] < meta[:, :1]
+    c0, lo, hi, mask = c0[valid].long(), lo[valid], hi[valid], mask[valid]
+    blocks = c0 // quantum
+    nbytes = sum(t.numel() * t.element_size() for t in p2) + extra_bytes
+    nbytes += torch.unique(blocks).numel() * soa.shape[1] * quantum * soa.element_size()
+    pairs = 0
+    for i in range(0, c0.numel(), 1 << 16):
+        sl = slice(i, i + (1 << 16))
+        rows = c0[sl, None] + torch.arange(quantum, device=c0.device)
+        live = (rows >= lo[sl, None]) & (rows < hi[sl, None]) & (soa[blocks[sl], sigma_row] > 0)
+        groups = sum((mask[sl] >> k) & 1 for k in range(4))
+        pairs += int((live.sum(1) * groups).sum()) * (rays // 4)
+    return float(nbytes), 12.0 * pairs
+
+
+def bound_of(nbytes, flops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def train_main_path(dev):
@@ -189,13 +335,15 @@ def train_main_path(dev):
     train_dir = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build", "smoke"))
     fused_mlp.fwd_launches = 0
     fused_mlp.bwd_launches = 0
-    model, state = train_cli.main([
-        "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
-        "--train_dir", train_dir, "--device", "cuda", "--use_pallas",
-        "--compute_dtype", "bfloat16", "--batch_size", str(BENCH_BATCH), "--image_batching",
-        "--max_steps", str(TRAIN_STEPS), "--lr_final", "5e-5", "--print_every", "1",
-        "--save_every", str(TRAIN_STEPS), "--render_every", str(TRAIN_STEPS),
-    ])
+    # The CLI prints a line per step: keep them out of the smoke's output.
+    with open(os.path.join(train_dir, "train.log"), "w") as log, contextlib.redirect_stdout(log):
+        model, state = train_cli.main([
+            "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", "--use_pallas",
+            "--compute_dtype", "bfloat16", "--batch_size", str(BENCH_BATCH), "--image_batching",
+            "--max_steps", str(TRAIN_STEPS), "--lr_final", "5e-5", "--print_every", "1",
+            "--save_every", str(TRAIN_STEPS), "--render_every", str(TRAIN_STEPS),
+        ])
     torch.cuda.synchronize()
     launches = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
     psnr = [v for _, v in read_scalars(train_dir, "train_psnr")]
@@ -225,7 +373,7 @@ def train_main_path(dev):
         raise RuntimeError(f"train PSNR did not rise: first 20 {first}, last 20 {last}")
     if not (os.path.isfile(ckpt_path) and restored.step == TRAIN_STEPS and same):
         raise RuntimeError("the checkpoint did not restore into a fresh TrainState")
-    return launches
+    return launches, train_dir
 
 
 def train_throughput():
@@ -245,6 +393,317 @@ def train_throughput():
     if not (math.isfinite(res["rays_per_sec"]) and math.isfinite(res["final_psnr"])):
         raise RuntimeError(f"bad bench result {res}")
     return res
+
+
+def extract_main_path(train_dir):
+    """Phase 9: the extract CLI on the train phase's checkpoint."""
+    from plenoctree_tpu_torch.cli import extract as extract_cli
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    t0 = time.time()
+    out = os.path.join(ROOT, "build", "smoke", "extract", "tree.npz")
+    fused_mlp.fwd_launches = 0
+    steps = {}
+    lines = []
+
+    def clock(text):
+        for line in text.splitlines():
+            if line.startswith("* "):
+                steps[line[2:].strip()] = round(time.time() - t0, 2)
+            lines.append(line)
+
+    with contextlib.redirect_stdout(_Tee(clock)):
+        tree = extract_cli.main([
+            "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", "--use_pallas",
+            "--compute_dtype", "bfloat16", "--output", out, "--fast_eval", *EXTRACT_FLAGS,
+        ])
+    torch.cuda.synchronize()
+    launches = fused_mlp.fwd_launches
+    with open(out + ".results.json") as f:
+        results = json.load(f)
+    back = N3Tree.load(out)
+    phase(
+        "extract main path", t0, fwd_launches=launches, leaves=tree.n_leaves,
+        reloaded_leaves=back.n_leaves, depth=back.max_depth, eval_psnr=results["psnr"],
+        eval_ssim=results["ssim"], step_clock_s=json.dumps(steps),
+    )
+    if launches <= 0:
+        raise RuntimeError("the extract CLI never launched the trunk forward kernel")
+    if back.n_leaves != tree.n_leaves or back.max_depth != 8 or tree.n_leaves == 0:
+        raise RuntimeError(f"bad extracted tree: {back}")
+    if not math.isfinite(results["psnr"]):
+        raise RuntimeError(f"bad extraction eval {results}")
+    return launches
+
+
+class _Tee:
+    """stdout that also hands each complete line to a callback."""
+
+    def __init__(self, fn):
+        self.fn, self.out, self.buf = fn, sys.stdout, ""
+
+    def write(self, text):
+        self.buf += text
+        if "\n" in self.buf:
+            done, self.buf = self.buf.rsplit("\n", 1)
+            self.fn(done)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def exact_inputs(opt, c2w):
+    """The optimizer's tile inputs for one 800x800 pose; fails if its caps
+    would drop geometry."""
+    focal = 1.1 * RES
+    r = opt.r
+    r.w1cap = r.w1cap or int(min(r.grid_c, np.ceil(np.sqrt(3) * r.tile / focal * r.grid_c) + 3))
+    ti = r.make_tile_inputs_fn(RES, RES, focal, r.rcap, r.w1cap, r.ccap)
+    idx = r.index
+    p2, _, nck, w1o = ti(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])
+    if int(nck.max()) > r.ccap or int(w1o.max()) > 0:
+        raise RuntimeError(f"caps too small at 800x800: pieces {int(nck.max())}, w1 {int(w1o.max())}")
+    return ti, p2
+
+
+def tile_bwd_vs_plain(tree):
+    """Phase 11: the tile backward kernel against its plain version."""
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.kernels import tile_composite as K
+    from plenoctree_tpu_torch.octree.tile_opt import TileOptimizer
+
+    t0 = time.time()
+    opt = TileOptimizer(tree, step_size=1e-5, ccap=512, device="cuda")
+    t_index = time.time() - t0
+    ti, p2 = exact_inputs(opt, orbit_pose(0.3))
+    soa, kw = opt.static_soa, opt._kw
+    fwd = lambda: K.composite_tiles(*p2, soa, **kw, stop_thresh=0.0, od_cap=1e30)  # noqa: E731
+    out = fwd()
+    # The exact-mode forward against its plain version first: the backward
+    # check below feeds this `out` to both sides, so it cannot see a wrong one.
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_ref = K.composite_tiles_reference(*p2, soa, **kw, stop_thresh=0.0, od_cap=1e30)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t1) * 1e3
+    fwd_err = float((out - out_ref).abs().max())
+    del out_ref
+    if not (bool(torch.isfinite(out).all()) and fwd_err <= KERNEL_ATOL):
+        raise RuntimeError(f"exact-mode tile kernel disagrees with the plain version: {fwd_err}")
+    g = torch.tensor(np.random.default_rng(SEED).normal(size=tuple(out.shape)), dtype=torch.float32,
+                     device=out.device)
+    got = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+    again = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+    torch.cuda.synchronize()
+    ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw)
+    sr = kw["sigma_row"]
+    errs = {}
+    for name, sl in (("sigma", slice(sr, sr + 1)), ("colour", slice(6, sr))):
+        top = float(ref[:, sl].abs().max())
+        errs[name] = (float((got[:, sl] - ref[:, sl]).abs().max()) / top,
+                      float((again[:, sl] - got[:, sl]).abs().max()) / top)
+    finite = bool(torch.isfinite(got).all())
+    untouched = not bool(got[:, :6].any() or got[:, sr + 1 :].any())
+    max_abs_err = float((got - ref).abs().max())
+    ms_k = cuda_ms(lambda: K.composite_tiles_bwd(*p2, soa, out, g, **kw), 5)
+    ms_p = cuda_ms(lambda: K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw), 1)
+    ms_f = cuda_ms(fwd, 5)
+    nbytes, flops = tile_work(p2, soa, sr, opt.r.quantum,
+                              out.numel() * 4 * 2 + soa.numel() * soa.element_size())
+    bound_ms, bound_by = bound_of(nbytes, flops, F32_FLOPS)
+    fwd_bound = bound_of(*tile_work(p2, soa, sr, opt.r.quantum, out.numel() * 4), F32_FLOPS)
+    pieces = p2[0][:, 0, 0]
+    phase(
+        "tile bwd kernel vs plain", t0, index_build_s=round(t_index, 2), tiles=pieces.numel(),
+        pieces_total=int(pieces.sum()), pieces_max=int(pieces.max()), ccap=opt.r.ccap,
+        sigma_rel_err=errs["sigma"][0], colour_rel_err=errs["colour"][0], tol=BWD_RTOL,
+        sigma_rerun_rel=errs["sigma"][1], colour_rerun_rel=errs["colour"][1],
+        rerun_tol=BWD_RERUN_RTOL, max_abs_err=max_abs_err, kernel_ms=ms_k, plain_ms=ms_p,
+        fwd_exact_max_abs_err=fwd_err, fwd_exact_tol=KERNEL_ATOL, fwd_exact_kernel_ms=ms_f,
+        fwd_exact_plain_ms=fwd_plain_ms, fwd_exact_bound_ms=fwd_bound[0], bound_ms=bound_ms,
+        bound_by=bound_by, soa_gib=soa.numel() * 4 / 2**30,
+    )
+    if not (finite and untouched):
+        raise RuntimeError("tile backward kernel: non-finite or misplaced gradients")
+    if not max(e[0] for e in errs.values()) <= BWD_RTOL:
+        raise RuntimeError(f"tile backward kernel disagrees with the plain version: {errs}")
+    if not max(e[1] for e in errs.values()) <= BWD_RERUN_RTOL:
+        raise RuntimeError(f"two tile backward kernel runs differ too much: {errs}")
+    del got, again, ref
+    return opt, ti, dict(max_abs_err=max_abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                         bound_by=bound_by, fwd_exact_err=fwd_err)
+
+
+def device_split(prof, kernels, ops, n_steps):
+    """Device ms per step from a torch.profiler window: per group of
+    `kernels` (kernel-name substrings) and of `ops` (the device time of the
+    kernels an op launched), the rest as "other"; and the top kernels as
+    (ms per step, name, launches per step)."""
+    ms = dict.fromkeys([*kernels, *ops], 0.0)
+    total, top = 0.0, []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        t = t / 1e3 / n_steps
+        if ev.device_type.name == "CUDA" and t:
+            total += t
+            top.append((round(t, 3), ev.key[:60], ev.count // n_steps))
+            name = next((n for n, k in kernels.items() if k in ev.key), None)
+            if name:
+                ms[name] += t
+        else:
+            name = next((n for n, k in ops.items() if k == ev.key), None)
+            if name:
+                ms[name] += t
+    ms["other"] = total - sum(ms.values())
+    top.sort(reverse=True)
+    return ms, top[:8]
+
+
+def optimize_throughput(opt, ti):
+    """Phase 12: ms per optimizer step at 800x800, and its split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+
+    t0 = time.time()
+    focal = 1.1 * RES
+    lr = float(OPT_FLAGS[OPT_FLAGS.index("--lr") + 1])
+    leaf = opt.initial_leaf_dataT()
+    poses = [orbit_pose(2.0 * np.pi * k / OPT_STEPS) for k in range(OPT_STEPS)]
+    gts = []
+    rng = np.random.default_rng(SEED)
+    for c2w in poses[:2]:
+        img, _, _, _ = opt.render(leaf, c2w, RES, RES, focal)
+        gts.append(np.clip(img + 0.05 * rng.standard_normal(img.shape), 0, 1).astype(np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(k):
+        (_, (_, _, nck, w1o)), grad = opt.loss_and_grad(leaf, poses[k], gts[k % 2], RES, RES, focal)
+        with torch.no_grad():
+            leaf.add_(grad * -lr)
+        return nck, w1o
+
+    step(0)  # warm-up
+    step_ms = []
+    for k in range(OPT_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        nck, w1o = step(k)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        if int(nck) > opt.r.ccap or int(w1o) > 0:
+            raise RuntimeError(f"an optimizer step dropped geometry (nc {int(nck)}, w1 {int(w1o)})")
+    peak = torch.cuda.max_memory_allocated()
+    step_med = float(np.median(step_ms))
+
+    # Where the same steps spend device time: one profiler window over the
+    # real step (groups: OPT_STEP_KERNELS, OPT_STEP_OPS). Tile inputs (phase
+    # 1), the soa relayout, the loss and the update are small kernels in "other";
+    # the host time between kernels is the idle share. The tile inputs'
+    # wall time is also taken alone, on the function the step calls.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(OPT_PROFILE_STEPS):
+            step(k)
+        torch.cuda.synchronize()
+    split, top = device_split(prof, OPT_STEP_KERNELS, OPT_STEP_OPS, OPT_PROFILE_STEPS)
+    device_ms = sum(split.values())
+    idx = opt.r.index
+    inputs_ms = cuda_ms(lambda: ti(poses[0], idx["csr"], idx["base"], opt.r.extra_data,
+                                   idx["blk_bbox"]), 5)
+    phase(
+        "optimize throughput", t0, res=RES, steps=OPT_STEPS, ms_per_step_median=step_med,
+        ms_per_step_best=float(np.min(step_ms)), peak_mem_gib=peak / 2**30,
+        device_ms_per_step=device_ms, device_split_ms=json.dumps(split),
+        idle_share=1.0 - device_ms / step_med, tile_inputs_alone_ms=inputs_ms,
+        top_kernels=json.dumps(top),
+    )
+    if not all(math.isfinite(v) for v in step_ms):
+        raise RuntimeError("bad optimizer step times")
+    if not all(v > 0 for v in split.values()):
+        raise RuntimeError(f"a group of the profiled step shows no device time: {split}")
+    return step_med
+
+
+def optimize_main_path(tree):
+    """Phase 13: the optimize CLI (--tile_opt) on the washed tree, then the
+    eval CLI on its output."""
+    from plenoctree_tpu_torch.cli import evaluate as eval_cli
+    from plenoctree_tpu_torch.cli import optimize as optimize_cli
+    from plenoctree_tpu_torch.kernels import tile_composite as K
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    t0 = time.time()
+    out_dir = os.path.join(ROOT, "build", "smoke", "optimize")
+    os.makedirs(out_dir, exist_ok=True)
+    washed = tree.clone()
+    bd = washed.data_format.basis_dim
+    washed.data[..., [0, bd, 2 * bd]] = 0.0  # the degree-0 term of each channel
+    src, dst = os.path.join(out_dir, "tree_washed.npz"), os.path.join(out_dir, "tree_opt.npz")
+    washed.save(src, compress=False)
+    common = ["--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+              "--synthetic_resolution", str(OPT_RES), "--device", "cuda"]
+    K.launches = K.bwd_launches = 0
+    initial, vals = [], []
+
+    def grab(text):
+        for line in text.splitlines():
+            if line.startswith("** initial val psnr"):
+                initial.append(float(line.split()[-1]))
+            elif line.startswith("** val psnr"):  # "** val psnr <psnr> best <best>"
+                vals.append(float(line.split()[3]))
+
+    with contextlib.redirect_stdout(_Tee(grab)):
+        best_tree, best_psnr = optimize_cli.main(common + [
+            "--input", src, "--output", dst, "--tile_opt", *OPT_FLAGS,
+        ])
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    loaded = N3Tree.load(dst) if os.path.isfile(dst) else None
+    phase(
+        "optimize main path", t0, fwd_launches=launches[0], bwd_launches=launches[1],
+        initial_val_psnr=initial[0] if initial else None, val_psnr_per_epoch=vals,
+        best_val_psnr=best_psnr, min_gain_db=OPT_MIN_GAIN_DB, tree_opt_leaves=None if loaded is None else loaded.n_leaves,
+    )
+    if min(launches) <= 0:
+        raise RuntimeError(f"the optimize CLI did not launch both tile kernels: {launches}")
+    if not initial or not best_psnr > initial[0] + OPT_MIN_GAIN_DB:
+        raise RuntimeError(f"val PSNR did not rise by {OPT_MIN_GAIN_DB} dB: {initial} -> {best_psnr}")
+    if loaded is None or best_tree is None or loaded.n_leaves != tree.n_leaves:
+        raise RuntimeError("tree_opt.npz missing or not the optimized tree")
+
+    t0 = time.time()
+    K.launches = 0
+    psnr, ssim, _ = eval_cli.main(common + ["--input", dst, "--fast_eval"])
+    torch.cuda.synchronize()
+    phase("optimized tree eval", t0, psnr=psnr, ssim=ssim, launches=K.launches)
+    if not (math.isfinite(psnr) and K.launches > 0):
+        raise RuntimeError(f"bad eval of the optimized tree: PSNR {psnr}")
+
+    # Control: the same run with the gradient's sign flipped (SGD at -lr)
+    # must not pass the gain check, or the check cannot tell a broken
+    # gradient from a sound one.
+    t0 = time.time()
+    i = OPT_FLAGS.index("--lr")
+    flipped = OPT_FLAGS[:i] + OPT_FLAGS[i + 2 :] + [f"--lr=-{OPT_FLAGS[i + 1]}"]
+    initial.clear()
+    vals.clear()
+    with contextlib.redirect_stdout(_Tee(grab)):
+        _, ctrl_best = optimize_cli.main(common + [
+            "--input", src, "--tile_opt", "--nosave", *flipped,
+        ])
+    gain = ctrl_best - initial[0]
+    phase("optimize control (gradient sign flipped)", t0, initial_val_psnr=initial[0],
+          val_psnr_after=vals, best_val_psnr=ctrl_best, gain_db=gain, min_gain_db=OPT_MIN_GAIN_DB)
+    if not gain < OPT_MIN_GAIN_DB:
+        raise RuntimeError(f"a sign-flipped gradient passed the gain check: {gain} dB")
+    return launches[1]
 
 
 def main():
@@ -318,11 +777,13 @@ def main():
         lambda: tile_inputs(c2w, idx["csr"], idx["base"], renderer.extra_data, idx["blk_bbox"]), 5
     )
     n_pieces = p2[0][:, 0, 0]
+    fwd_bound = bound_of(*tile_work(p2, soa, kw["sigma_row"], kw["quantum"], out_k.numel() * 4),
+                         F32_FLOPS)
     phase(
         "kernel vs plain", t0, tiles=p2[0].shape[0], pieces_max=int(n_pieces.max()),
         pieces_mean=float(n_pieces.float().mean()), index_build_s=round(t_index, 2),
         max_abs_err=max_abs_err, tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_ms=ms_plain,
-        tile_inputs_ms=ms_inputs,
+        tile_inputs_ms=ms_inputs, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
     )
     if not max_abs_err <= KERNEL_ATOL:
         raise RuntimeError(f"kernel disagrees with the plain version: {max_abs_err} > {KERNEL_ATOL}")
@@ -370,8 +831,15 @@ def main():
     torch.cuda.empty_cache()
 
     trunk = trunk_vs_plain(dev)
-    fwd_launches, bwd_launches = train_main_path(dev)
+    (fwd_launches, bwd_launches), train_dir = train_main_path(dev)
+    extract_main_path(train_dir)
     train_throughput()
+    torch.cuda.empty_cache()
+    opt, ti, bwd = tile_bwd_vs_plain(tree)
+    optimize_throughput(opt, ti)
+    del opt, ti
+    torch.cuda.empty_cache()
+    tile_bwd_launches = optimize_main_path(tree)
 
     bench_rows = trunk[TRUNK_ROWS[0]]
     print(json.dumps({"kernels": [
@@ -381,9 +849,12 @@ def main():
             "source": "plenoctree_tpu_torch/csrc/tile_composite.cu",
             "replaces": "plenoctree_tpu/octree/tile_render.py:711",
             "launches": main_launches,
-            "max_abs_err": max_abs_err,
+            "max_abs_err": max(max_abs_err, bwd["fwd_exact_err"]),  # serving and exact mode
             "ms": ms_kernel,
             "plain_ms": ms_plain,
+            "bound_ms": fwd_bound[0],
+            "bound_by": fwd_bound[1],
+            "library_ms": None,
         },
         {
             "name": "fused_mlp_fwd",
@@ -394,6 +865,9 @@ def main():
             "max_abs_err": max(r["fwd_err"] for r in trunk.values()),
             "ms": bench_rows["fwd_ms"],
             "plain_ms": bench_rows["fwd_plain"],
+            "bound_ms": bench_rows["bound_fwd"][0],
+            "bound_by": bench_rows["bound_fwd"][1],
+            "library_ms": bench_rows["lib_fwd"],
         },
         {
             "name": "fused_mlp_bwd",
@@ -404,6 +878,22 @@ def main():
             "max_abs_err": max(r["bwd_abs"] for r in trunk.values()),
             "ms": bench_rows["bwd_ms"],
             "plain_ms": bench_rows["bwd_plain"],
+            "bound_ms": bench_rows["bound_bwd"][0],
+            "bound_by": bench_rows["bound_bwd"][1],
+            "library_ms": bench_rows["lib_bwd"],
+        },
+        {
+            "name": "tile_composite_bwd",
+            "route": "cuda",
+            "source": "plenoctree_tpu_torch/csrc/tile_composite.cu",
+            "replaces": "plenoctree_tpu/octree/tile_opt.py:44",
+            "launches": tile_bwd_launches,
+            "max_abs_err": bwd["max_abs_err"],
+            "ms": bwd["ms"],
+            "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd["bound_ms"],
+            "bound_by": bwd["bound_by"],
+            "library_ms": None,
         },
     ]}))
     print(smi)

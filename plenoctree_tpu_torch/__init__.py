@@ -2,10 +2,10 @@
 
 A second package beside the JAX reference (`plenoctree_tpu/`), mirroring its
 module paths (`octree/tile_render.py` <-> `plenoctree_tpu_torch/octree/
-tile_render.py`). It imports torch and never jax. The only things it takes
-from the JAX package are the shared tree contract: the numpy
-`plenoctree_tpu.octree.n3tree.N3Tree` (svox-compatible `tree.npz`) and the
-ctypes host runtime `plenoctree_tpu.native`.
+tile_render.py`). It imports torch and never jax, and nothing of the JAX
+package: what the two share is file formats (svox-compatible `tree.npz`,
+flax msgpack checkpoints, YAML/JSON configs), and the port keeps its own
+copy of the code that reads and writes them (`octree/n3tree.py`).
 
 Kernels: CUDA C++ sources live in `csrc/`, their Python wrappers in
 `kernels/`; each wrapper keeps a plain PyTorch version beside it, used for

@@ -98,8 +98,7 @@ def build_scene_tree(depth=4, basis_dim=1, sh_noise=0.0, seed=0):
     per channel seeded N(0, sh_noise) noise, and the scene's sigma; coarser
     leaves stay empty.
     """
-    from plenoctree_tpu.octree.n3tree import N3Tree
-
+    from plenoctree_tpu_torch.octree.n3tree import N3Tree
     from plenoctree_tpu_torch.ops.sh import SH_C0
 
     tree = N3Tree(

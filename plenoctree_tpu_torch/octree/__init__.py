@@ -1,7 +1,8 @@
-"""PlenOctree serving: the shared N3Tree contract and the tile renderer.
+"""PlenOctree conversion and serving: the tree, the tile renderer and
+optimizer, and extraction from a trained NeRF.
 
-`N3Tree` is the JAX package's own numpy class (svox-compatible `tree.npz`),
-reused as it is rather than copied: both packages load the same files.
+`N3Tree` is the port's own copy of the JAX package's numpy class
+(svox-compatible `tree.npz`, same keys): both packages load the same files.
 """
 
-from plenoctree_tpu.octree.n3tree import DataFormat, N3Tree  # noqa: F401
+from plenoctree_tpu_torch.octree.n3tree import DataFormat, N3Tree  # noqa: F401

@@ -1,0 +1,183 @@
+"""NeRF -> PlenOctree extraction (library).
+
+Port of plenoctree_tpu/octree/extract.py for the SH and RGBA heads without
+view directions: auto_scale (shrink the bbox to the sigma support),
+step1_build (dense grid evaluation, sigma or visibility-weight mask, tree
+build to init_grid_depth) and step2_fill (antialiased leaf fill: the mean of
+`samples_per_cell` jittered NeRF samples per leaf, alpha-weighted for RGBA
+trees). Tree bookkeeping is host numpy; the NeRF queries go through a
+`points_fn` on the device (`make_points_fn`: the model's raw trunk
+outputs, through the fused trunk kernel with --use_pallas on a GPU), and
+only sigma (step 0/1) or the per-leaf means (step 2) come back to the host.
+
+The jitter comes from np.random.default_rng(20200823), drawn chunk by chunk
+as the JAX package draws it, so both packages sample the same points.
+
+Not ported (raise NotImplementedError naming ROADMAP.md): use_viewdirs (the
+Monte-Carlo SH projection of a view-dependent NeRF, ops/sh_project.py) and
+SG trees.
+"""
+
+import numpy as np
+import torch
+
+from plenoctree_tpu_torch.octree.grid_weight import calculate_grid_weights
+
+_POINT_CHUNK = 131072  # default points per device dispatch
+
+
+def _point_chunk(cfg):
+    return max(int(getattr(cfg, "point_chunk", 0) or 0), 0) or max(cfg.chunk, _POINT_CHUNK)
+
+
+def _grid_points(reso, offset, invradius, z_min=None, z_max=None):
+    """World-coord centers of a reso^3 grid covering the tree volume."""
+    arr = (np.arange(0, reso, dtype=np.float32) + 0.5) / reso
+    xx = (arr - offset[0]) / invradius[0]
+    yy = (arr - offset[1]) / invradius[1]
+    zz = (arr - offset[2]) / invradius[2]
+    if z_min is not None:
+        zz = zz[zz >= z_min]
+    if z_max is not None:
+        zz = zz[zz <= z_max]
+    return np.stack(np.meshgrid(xx, yy, zz, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+def make_points_fn(model, device):
+    """points [N, 3] (numpy f32) -> (raw_rgb [N, C*K], raw_sigma [N, 1]),
+    f32 tensors on `device`: the fine trunk's raw outputs (no activation),
+    as the JAX CLI's eval_points_raw."""
+
+    @torch.no_grad()
+    def points_fn(points):
+        pts = torch.as_tensor(points, dtype=torch.float32).to(device)
+        raw_rgb, raw_sigma = model.eval_points_raw(pts)
+        return raw_rgb.float(), raw_sigma.float()
+
+    return points_fn
+
+
+def _as_tensor(x, device):
+    return torch.as_tensor(x, dtype=torch.float32).to(device)
+
+
+def _eval_sigma(points_fn, grid, chunk):
+    """Chunked sigma-only grid evaluation (only sigma leaves the device)."""
+    out = np.empty(grid.shape[0], np.float32)
+    for i in range(0, grid.shape[0], chunk):
+        _, sigma = points_fn(grid[i : i + chunk])
+        out[i : i + chunk] = torch.as_tensor(sigma).reshape(-1).float().cpu().numpy()
+    return out
+
+
+def _check_supported(cfg, tree=None):
+    if cfg.use_viewdirs:
+        raise NotImplementedError(
+            "extraction with use_viewdirs (SH projection of a view-dependent NeRF) "
+            "is not ported yet (ROADMAP.md)"
+        )
+    if getattr(cfg, "sg_dim", -1) > 0 or (tree is not None and tree.data_format.format == "SG"):
+        raise NotImplementedError("extraction of SG trees is not ported yet (ROADMAP.md)")
+
+
+def auto_scale(cfg, center, radius, points_fn):
+    """Shrink the bbox to the sigma support (parity: extraction.py:244-286)."""
+    print("* Step 0: Auto scale")
+    reso = 2**cfg.init_grid_depth
+    radius = np.asarray(radius, np.float32)
+    center = np.asarray(center, np.float32)
+    scale = 0.5 / radius
+    offset = 0.5 * (1.0 - center / radius)
+    grid = _grid_points(reso, offset, scale, cfg.z_min, cfg.z_max)
+
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg))
+    approx_delta = 2.0 / reso
+    sigma_thresh = -np.log(1.0 - cfg.scale_alpha_thresh) / approx_delta
+    grid = grid[sigmas >= sigma_thresh]
+    if grid.shape[0] == 0:
+        print("  (no voxels above threshold; keeping original bbox)")
+        return center.tolist(), radius.tolist()
+    lc = grid.min(axis=0) - 0.5 / reso
+    uc = grid.max(axis=0) + 0.5 / reso
+    return ((lc + uc) * 0.5).tolist(), ((uc - lc) * 0.5).tolist()
+
+
+def step1_build(cfg, tree, points_fn, dataset, device="cpu"):
+    """Dense grid eval -> sigma/weight mask -> refine to init_grid_depth.
+    The weight mask's march runs on `device`."""
+    print("* Step 1: Grid eval")
+    reso = 2 ** (cfg.init_grid_depth + 1)
+    grid = _grid_points(reso, tree.offset, tree.invradius, cfg.z_min, cfg.z_max)
+    print("  init grid", grid.shape)
+
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg))
+    approx_delta = 2.0 / reso
+    sigma_thresh = -np.log(1.0 - cfg.alpha_thresh) / approx_delta
+
+    if cfg.masking_mode == "sigma":
+        mask = sigmas >= sigma_thresh
+    elif cfg.masking_mode == "weight":
+        print("* Calculating grid weights")
+        grid_weights = calculate_grid_weights(
+            dataset, np.maximum(sigmas, 0.0), reso, tree.invradius, tree.offset, device=device,
+        )
+        mask = grid_weights.reshape(-1) >= cfg.weight_thresh
+    else:
+        raise ValueError(f"unknown masking_mode {cfg.masking_mode}")
+
+    grid = grid[mask]
+    print("  masked grid", grid.shape)
+    print("  Building octree")
+    if tree.n_internal == 1:
+        tree.build_from_points(grid, depth=cfg.init_grid_depth)
+    else:
+        for _ in range(cfg.init_grid_depth):
+            tree.refine_points(grid)
+    print(" ", tree)
+    assert tree.max_depth == cfg.init_grid_depth
+    return tree
+
+
+def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
+    """Antialiased leaf fill of the leaves at the tree's full depth: the
+    mean of samples_per_cell jittered samples per leaf (alpha-weighted
+    colour for RGBA trees), reduced on `device`."""
+    _check_supported(cfg, tree)
+    print("* Step 2: AA", cfg.samples_per_cell)
+    rng = rng or np.random.default_rng(20200823)
+    S = cfg.samples_per_cell
+    is_rgba = tree.data_format.format == "RGBA"
+    approx_delta = 2.0 / 2 ** (cfg.init_grid_depth + 1)
+
+    # Leaf geometry once up front: rows into tree.data + tree-space corner/size.
+    leaves_all = tree._leaf_nodes()
+    depth_all = tree.parent_depth[leaves_all[:, 0], 1]
+    sel = leaves_all[depth_all == tree.max_depth]
+    corner = tree._cell_corner(sel).astype(np.float64)
+    size = tree._cell_size(sel).astype(np.float64)
+    chunk_size = max(1, _point_chunk(cfg) // S)
+
+    with torch.no_grad():
+        for lo in range(0, sel.shape[0], chunk_size):
+            hi = min(lo + chunk_size, sel.shape[0])
+            u = rng.random((hi - lo, S, 3), dtype=np.float64)
+            t = corner[lo:hi, None, :] + u * size[lo:hi, None, None]
+            points = tree.tree2world(t.astype(np.float32)).reshape(-1, 3)
+            rgb, sigma = points_fn(points)
+            rgb = _as_tensor(rgb, device).reshape(hi - lo, S, -1)
+            sigma = _as_tensor(sigma, device).reshape(hi - lo, S, 1)
+            if is_rgba:
+                # Alpha-weighted colour average (octree/extraction.py:377-388).
+                sigma_avg = sigma.mean(dim=1)
+                alpha = 1.0 - torch.exp(-approx_delta * sigma)
+                msum = alpha.sum(dim=1)
+                rgb_avg = (rgb * alpha).sum(dim=1) / msum.clamp(min=1e-12)
+                rgb_avg = torch.where(msum[..., :1] < 1e-3, 0.0, rgb_avg)
+                rgba = torch.cat([rgb_avg, sigma_avg], dim=-1)
+            else:
+                rgba = torch.cat([rgb, sigma], dim=-1).mean(dim=1)
+            rows = sel[lo:hi]
+            tree.data[rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]] = (
+                rgba.cpu().numpy().astype(tree.data.dtype)
+            )
+    return tree

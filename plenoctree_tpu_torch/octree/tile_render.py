@@ -87,14 +87,22 @@ def build_tile_index(
     span = hi_cell - lo_cell + 1
 
     max_span = int(span.max()) if span.size else 1
+    # Only leaves wider than one coarse cell have replicas past (0, 0, 0):
+    # scanning just those keeps the build linear in the leaf count where a
+    # keep_all index holds a few large empty leaves (max_span up to C/2).
+    # Same instances, in the same order, as scanning every leaf.
+    wide = np.nonzero(span.max(axis=1) > 1)[0]
+    span_w = span[wide]
     inst_leaf, inst_vox = [], []
     for dx in range(max_span):
         for dy in range(max_span):
             for dz in range(max_span):
-                m = (dx < span[:, 0]) & (dy < span[:, 1]) & (dz < span[:, 2])
-                if not m.any():
+                if dx == dy == dz == 0:
+                    idx = np.arange(span.shape[0])
+                else:
+                    idx = wide[(dx < span_w[:, 0]) & (dy < span_w[:, 1]) & (dz < span_w[:, 2])]
+                if idx.size == 0:
                     continue
-                idx = np.nonzero(m)[0]
                 inst_leaf.append(idx)
                 inst_vox.append(lo_cell[idx] + np.array([dx, dy, dz])[None, :])
     if inst_leaf:

@@ -170,6 +170,17 @@ def _parse_bool(text):
     raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
 
 
+def add_bool_flag(parser, name, default, help_str):
+    """A CLI-local boolean flag with the absl spellings (`--name`,
+    `--noname`, `--name=false`)."""
+    parser.add_argument(
+        f"--{name}", nargs="?", const=True, default=default, type=_parse_bool,
+        help=f"{help_str} (default {default})",
+    )
+    parser.add_argument(f"--no{name}", dest=name, action="store_const", const=False,
+                        help=argparse.SUPPRESS)
+
+
 def add_flags(parser):
     """Register every framework flag on an argparse parser. Every flag's
     parser default is None so that `parse_flags` can tell an explicit flag

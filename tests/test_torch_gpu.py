@@ -14,6 +14,7 @@ from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthet
 from plenoctree_tpu_torch.kernels import fused_mlp as F
 from plenoctree_tpu_torch.kernels import tile_composite as K
 from plenoctree_tpu_torch.models.params import init_trunk_params, trunk_weights
+from plenoctree_tpu_torch.octree.tile_opt import CompositeTilesFn, TileOptimizer, optimize_tree_tiles
 from plenoctree_tpu_torch.octree.tile_render import TileRenderer
 
 # Kernel vs plain version on the same inputs (see chip_smoke.py): the sums
@@ -25,6 +26,12 @@ ATOL = 5e-5
 # holds the bench shapes to the tighter bounds measured there.
 TRUNK_FWD_ATOL = 2e-2
 TRUNK_GRAD_RTOL = 0.05
+# Tile backward kernel vs its plain version, per field group, relative to
+# the group's largest |gradient|: the same hit tests and precedence, sums in
+# another order (measured <= 2.9e-7 on the H100); and two kernel runs, whose
+# float atomics add in another order each time (measured <= 1.5e-7).
+BWD_RTOL = 1e-5
+BWD_RERUN_RTOL = 2e-6
 
 
 def _need_cuda():
@@ -51,14 +58,16 @@ def test_kernel_matches_reference(basis_dim, res):
 
 
 @pytest.mark.gpu
-def test_cuda_frame_matches_cpu_frame():
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cuda_frame_matches_cpu_frame(tile):
     """A whole frame on the card (phase 1 in torch, the CUDA kernel) vs the
-    same renderer on the CPU (plain version): within 1e-4."""
+    same renderer on the CPU (plain version): within 1e-4. Tile 32 runs the
+    kernel's 1024-thread instantiation."""
     _need_cuda()
     tree = build_scene_tree(depth=4, basis_dim=16, sh_noise=0.05, seed=2)
     _, c2ws, focal = render_synthetic_scene("test", 2, 47, True, 2.0, 6.0)
-    gpu = TileRenderer(tree, grid_c=16, device="cuda")
-    cpu = TileRenderer(tree, grid_c=16, device="cpu")
+    gpu = TileRenderer(tree, grid_c=16, tile=tile, device="cuda")
+    cpu = TileRenderer(tree, grid_c=16, tile=tile, device="cpu")
     for c2w in c2ws:
         a = gpu.render_persp(c2w, 47, 47, focal)
         b = cpu.render_persp(c2w, 47, 47, focal)
@@ -192,3 +201,111 @@ def test_train_steps_on_cuda_match_cpu():
     # differs by more (measured 2.6e-3 relative on the H100).
     np.testing.assert_allclose(loss_gpu[1], loss_cpu[1], rtol=1e-2)
     assert max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu) <= 4 * 5e-4 + 1e-6
+
+
+def _exact_inputs(depth, basis_dim, res, device="cuda", tile=16):
+    """An exact-mode optimizer (keep_all index) and its tile inputs for one
+    pose at res x res."""
+    tree = build_scene_tree(depth=depth, basis_dim=basis_dim, sh_noise=0.05, seed=1)
+    opt = TileOptimizer(tree, step_size=1e-4, grid_c=16, ccap=4096, tile=tile, device=device)
+    _, c2ws, focal = render_synthetic_scene("test", 1, res, True, 2.0, 6.0)
+    r = opt.r
+    ti = r.make_tile_inputs_fn(res, res, focal, r.rcap, 16, r.ccap)
+    p2 = ti(c2ws[0], r.index["csr"], r.index["base"], r.extra_data, r.index["blk_bbox"])[0]
+    return opt, p2
+
+
+def _group_errs(a, b, sigma_row):
+    out = {}
+    for name, sl in (("colour", slice(6, sigma_row)), ("sigma", slice(sigma_row, sigma_row + 1))):
+        ref = b[:, sl].abs().max().item()
+        out[name] = (a[:, sl] - b[:, sl]).abs().max().item() / max(ref, 1e-30)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,basis_dim,res,tile", [(4, 16, 64, 16), (5, 1, 128, 16), (4, 16, 64, 32)])
+def test_tile_bwd_kernel_matches_reference(depth, basis_dim, res, tile):
+    """The exact-mode forward and the backward kernel against their plain
+    versions; tile 32 (1024 rays per block) runs both kernels' second
+    instantiation."""
+    _need_cuda()
+    opt, p2 = _exact_inputs(depth, basis_dim, res, tile=tile)
+    soa = opt.static_soa
+    exact = dict(opt._kw, stop_thresh=0.0, od_cap=1e30)
+    out = K.composite_tiles(*p2, soa, **exact)
+    assert float((out - K.composite_tiles_reference(*p2, soa, **exact)).abs().max()) <= ATOL
+    g = torch.tensor(np.random.default_rng(res).normal(size=out.shape), dtype=torch.float32,
+                     device="cuda")
+    before = K.bwd_launches
+    got = K.composite_tiles_bwd(*p2, soa, out, g, **opt._kw)
+    again = K.composite_tiles_bwd(*p2, soa, out, g, **opt._kw)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == before + 2
+    ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **opt._kw)
+    sr = int(opt.r.index["sigma_row"])
+    assert torch.isfinite(got).all() and not got[:, :6].any() and not got[:, sr + 1 :].any()
+    assert max(_group_errs(got, ref, sr).values()) <= BWD_RTOL
+    assert max(_group_errs(again, got, sr).values()) <= BWD_RERUN_RTOL
+
+
+@pytest.mark.gpu
+def test_composite_tiles_fn_cuda_matches_cpu():
+    """CompositeTilesFn forward and soa gradient on the card (both kernels)
+    against the CPU (plain versions) on the same inputs."""
+    _need_cuda()
+    grads, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        opt, p2 = _exact_inputs(4, 16, 47, device=dev)
+        soa = opt.static_soa.clone().requires_grad_(True)
+        out = CompositeTilesFn.apply(opt._kw, soa, *p2)
+        g = torch.tensor(np.random.default_rng(0).normal(size=out.shape), dtype=torch.float32,
+                         device=dev)
+        (grads[dev],) = torch.autograd.grad((out * g).sum(), soa)
+        outs[dev] = out.detach().cpu()
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= ATOL
+    sr = int(opt.r.index["sigma_row"])
+    assert max(_group_errs(grads["cuda"].cpu(), grads["cpu"], sr).values()) <= BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_optimize_epoch_cuda_matches_cpu():
+    """One optimize_tree_tiles epoch (SGD at lr 1e5 over the 12 synthetic
+    train views at 32x32, validated on the 4 val views; the DC colour
+    coefficients of a depth-4 SH16 tree washed to 0) on the card and on the
+    CPU: the same val PSNR within 1e-3 dB and leaf data within 1e-4."""
+    _need_cuda()
+    from plenoctree_tpu_torch.utils.config import default_config
+
+    images, c2ws, focal = render_synthetic_scene("train", 12, 32, True, 2.0, 6.0)
+    val_images, val_c2ws, _ = render_synthetic_scene("val", 4, 32, True, 2.0, 6.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tree = build_scene_tree(depth=4, basis_dim=16, sh_noise=0.05, seed=2)
+        tree.data[..., [0, 16, 32]] = 0.0
+        best, psnr = optimize_tree_tiles(
+            tree, c2ws, images, val_c2ws, val_images, focal,
+            default_config(renderer_step_size=1e-5), num_epochs=1, lr=1e5, val_interval=1,
+            grid_c=16, device=dev,
+        )
+        assert best is not None
+        runs[dev] = (best.data, psnr)
+    assert abs(runs["cuda"][1] - runs["cpu"][1]) <= 1e-3
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_tile_bwd_rejects_bad_inputs():
+    _need_cuda()
+    opt, p2 = _exact_inputs(3, 1, 32)
+    soa = opt.static_soa
+    out = K.composite_tiles(*p2, soa, **opt._kw, stop_thresh=0.0, od_cap=1e30)
+    g = torch.ones_like(out)
+    with pytest.raises(ValueError):
+        K.composite_tiles_bwd(*p2, soa, out, g[:, :, :4].contiguous(), **opt._kw)
+    with pytest.raises(ValueError):
+        K.composite_tiles_bwd(*p2, soa, out, g.cpu(), **opt._kw)
+    with pytest.raises(TypeError):
+        K.composite_tiles_bwd(*p2[:5], p2[5].double(), *p2[6:], soa, out, g, **opt._kw)
+    with pytest.raises(ValueError):
+        K.composite_tiles_bwd(*p2, soa, out, g, **dict(opt._kw, sigma_row=opt._kw["sigma_row"] + 1))

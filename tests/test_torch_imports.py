@@ -1,9 +1,9 @@
-"""The port runs on a machine without the JAX package's dependencies: with
-jax, flax, msgpack, absl, yaml, PIL, imageio and tensorboardX blocked, the
-shared tree contract (`N3Tree`, `native`) and the serving slice import and
-render a frame on the CPU, the training slice imports and runs two train
-steps through its CLI with a checkpoint save and restore, and jax stays
-unimported."""
+"""The port runs on a machine without the JAX package or its dependencies:
+with plenoctree_tpu itself and jax, flax, msgpack, absl, yaml, PIL, imageio
+and tensorboardX blocked, the serving slice imports and renders a frame on
+the CPU, the training slice runs train steps through its CLI with a
+checkpoint save and restore, the conversion slice extracts a tree from that
+checkpoint and optimizes it through their CLIs, and jax stays unimported."""
 
 import os
 import subprocess
@@ -13,12 +13,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL", "imageio", "tensorboardX"):
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "tensorboardX"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
-import plenoctree_tpu.native  # the two pieces the port shares with the JAX package
-import plenoctree_tpu.octree.n3tree
 import plenoctree_tpu_torch
 import plenoctree_tpu_torch.cli.evaluate
 import plenoctree_tpu_torch.data
@@ -30,7 +29,11 @@ import plenoctree_tpu_torch.kernels._build
 import plenoctree_tpu_torch.kernels.tile_composite
 import plenoctree_tpu_torch.octree
 import plenoctree_tpu_torch.octree.evaluate
+import plenoctree_tpu_torch.octree.extract
+import plenoctree_tpu_torch.octree.grid_weight
+import plenoctree_tpu_torch.octree.n3tree
 import plenoctree_tpu_torch.octree.renderer
+import plenoctree_tpu_torch.octree.tile_opt
 import plenoctree_tpu_torch.octree.tile_render
 import plenoctree_tpu_torch.ops.metrics
 import plenoctree_tpu_torch.ops.sh
@@ -46,7 +49,8 @@ plenoctree_tpu_torch.utils.config.update_flags(
 tree = build_scene_tree(depth=3)
 img = TileRenderer(tree, grid_c=16, device="cpu").render_persp(orbit_pose(0.3), 16, 16, 17.6)
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.min() < 0.99
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
+                and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")
 """
@@ -54,7 +58,8 @@ print("OK")
 
 _TRAIN_SCRIPT = r"""
 import os, sys, tempfile
-for name in ("jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL", "imageio", "tensorboardX"):
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "tensorboardX"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import torch
@@ -90,7 +95,26 @@ assert state2.step == 3 and os.path.exists(os.path.join(d, "checkpoint_3"))
 restored = ckpt.restore_checkpoint(d, ckpt.create_train_state(model))
 assert restored.step == 3 and restored.opt_state["count"] == 3
 assert all(torch.equal(p, model2.state_dict()[k]) for k, p in model.state_dict().items())
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None)
+
+import plenoctree_tpu_torch.cli.extract as extract_cli
+import plenoctree_tpu_torch.cli.optimize as optimize_cli
+from plenoctree_tpu_torch.octree import N3Tree
+
+model_flags = flags[:2] + ["--dataset", "synthetic", "--device", "cpu", "--net_depth", "2",
+                           "--net_width", "16", "--sh_deg", "1", "--num_coarse_samples", "4",
+                           "--num_fine_samples", "4", "--synthetic_resolution", "16"]
+tree_path, opt_path = os.path.join(d, "tree.npz"), os.path.join(d, "tree_opt.npz")
+tree = extract_cli.main(model_flags + [
+    "--train_dir", d, "--output", tree_path, "--init_grid_depth", "3", "--samples_per_cell", "2",
+    "--masking_mode", "sigma", "--alpha_thresh", "0.0", "--noeval",
+])
+assert tree.n_leaves > 0 and N3Tree.load(tree_path).n_leaves == tree.n_leaves
+optimize_cli.main(model_flags + [
+    "--input", tree_path, "--output", opt_path, "--tile_opt", "--num_epochs", "1",
+    "--tile_grid_c", "8", "--lr", "1e2", "--nosave",
+])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
+                and sys.modules[m] is not None)
 assert not leaked, leaked
 print("OK")
 """
@@ -98,7 +122,6 @@ print("OK")
 
 def _run_blocked(script):
     env = dict(os.environ)
-    env.pop("PLENOCTREE_PLATFORM", None)  # would make plenoctree_tpu import jax
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, env=env,
@@ -113,4 +136,6 @@ def test_slice_imports_and_renders_without_jax_stack():
 
 
 def test_training_slice_trains_without_jax_stack():
+    """Also runs the conversion CLIs (extract, optimize --tile_opt) on the
+    checkpoint the training run wrote."""
     _run_blocked(_TRAIN_SCRIPT)

@@ -84,6 +84,17 @@ def test_build_tile_index_matches_jax(trees, name):
     assert P.COPY_PAD == J.COPY_PAD
 
 
+@pytest.mark.parametrize("name", ["sh1", "sh16"])
+def test_build_tile_index_keep_all_matches_jax(trees, name):
+    """The optimizer's keep_all index (every leaf, empty coarse ones too, so
+    replicas span up to grid_c/2 cells per axis): bit-identical as well."""
+    ref = J.build_tile_index(trees[name], 0.0, grid_c=GRID_C, keep_all=True)
+    out = P.build_tile_index(trees[name], 0.0, grid_c=GRID_C, keep_all=True)
+    assert out["n_kept"] == trees[name].n_leaves
+    for k in ref:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(ref[k]), err_msg=k)
+
+
 def test_index_from_jax(renderers):
     jr, pr = renderers["sh1"]
     idx = P.index_from_jax(jr.index)
