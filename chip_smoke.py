@@ -1,15 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving,
-NeRF-SH training and PlenOctree conversion (extraction, tile optimization).
+NeRF-SH training, PlenOctree conversion (extraction, tile optimization),
+the gather probes, and the exact march (evaluation and optimization).
 
     python3 chip_smoke.py
 
 Phases, one line each with its wall time:
   1. device: the card's name and power limit;
-  2. kernel build: nvcc builds csrc/tile_composite.cu and csrc/fused_mlp.cu
-     into build/kernels/, in parallel (registers and spills per kernel);
+  2. kernel build: nvcc builds csrc/tile_composite.cu, csrc/fused_mlp.cu
+     and csrc/gather_sum.cu into build/kernels/, in parallel (registers and
+     spills per kernel);
   3. model: bakes the synthetic scene into an SH16 (data_dim 49) octree at
      depth 7 (seeded N(0, 0.05) higher-order SH coefficients) and saves it
-     as build/smoke/tree.npz;
+     as build/smoke/tree.npz; then renders the CLIs' synthetic views at
+     200x200 once (memoized: every later CLI run reuses them);
   4. kernel vs plain: the CUDA tile kernel against composite_tiles_reference
      on the phase-1 inputs of one 800x800 pose, with both times and the
      time of the tile inputs (ray generation + phase 1) for that pose;
@@ -30,7 +33,10 @@ Phases, one line each with its wall time:
      in-process on phase 8's checkpoint_200 with the same model flags and
      octree/config/syn_sh16.json's extraction flags at init_grid_depth 8;
      the trunk forward kernel's launch count must be > 0 and the tree must
-     save and reload; leaf count, eval PSNR and wall-clock per step;
+     save and reload; leaf count, eval PSNR (through the exact march, the
+     JAX CLI's default) and wall-clock per step; then one 800x800 exact
+     march frame of that tree (its accel grid is budgeted: a residual
+     descent), timed;
  10. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
      4096: rays/s, ms/step, peak memory, and the trunk kernels' share of
      device time from one torch.profiler window;
@@ -52,16 +58,44 @@ Phases, one line each with its wall time:
      launch count must be > 0, the best val PSNR must beat the initial one
      by OPT_MIN_GAIN_DB, tree_opt.npz must load; then the eval CLI on it;
      then a control, the same CLI run at -lr (the gradient's sign flipped),
-     which must not pass the gain check.
+     which must not pass the gain check;
+ 14. gather kernel vs plain, and the probes: every gather_sum variant (the
+     three Pallas probes' functions, and the shared-memory table) at K 256
+     x R 8192 indices into a 32k-row table, D 56, against its plain version
+     and a float64 sum (GATHER tolerance), reruns bitwise equal, with ms,
+     plain ms, embedding_bag ms and bound; then the probes' entry point
+     (`plenoctree_tpu_torch.bench_gather.run`) in process, its kernel
+     launches counted: one ns/row line per case;
+ 15. march full width: VolumeRenderer on the depth-7 tree, two 800x800
+     orbit poses, exact (step 1e-5) and fast: ms/frame, K estimated and
+     after regrowth, segment budget, accel level and reso, peak memory; the
+     fast frame of pose 0 must match the served tile frame of that pose to
+     MARCH_SERVED_MIN_PSNR;
+ 16. exact eval main path: the eval CLI without --fast_eval on the depth-7
+     tree at 200x200, 4 views, with seeded random LPIPS weights: PSNR/SSIM
+     above phase 5's floor, no tile kernel launch, LPIPS finite and equal
+     on the card and the CPU for one image pair within LPIPS_RTOL (TF32 off);
+ 17. march optimize throughput: TwoPhaseRenderer.loss_grad over chunks of
+     rays (as the optimize CLI sizes them on this card) + the SGD update at
+     800x800 on the depth-7 tree: median ms per step, peak memory, and the
+     device time by part (march, shade forward + backward, update) and idle
+     share of one chunk + update from a profiler window;
+ 18. march optimize main path: the optimize CLI without --tile_opt on phase
+     13's washed tree with the same flags: no tile kernel launch, the best
+     val PSNR beats the initial one by OPT_MIN_GAIN_DB, tree_opt_march.npz
+     loads.
 
+A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
 bytes it must move (each input read once, each output written once; for the
-tile kernels the soa blocks its pieces name, once each) over 3.35 TB/s and
+tile kernels the soa blocks its pieces name, once each; for gather_sum the
+index stream and each distinct row once) over 3.35 TB/s and
 the operations this run's data needs over the card's peak for their type
 (989 TFLOP/s bf16 tensor cores for the trunk, 67 TFLOP/s f32 for the tile
 kernels, counting only the slab tests of live rows with sigma > 0 against
 the rays of their pieces' quad groups), and, for the trunk, the time of the
-same MLP as a chain of bf16 torch.nn.functional.linear + relu calls.
+same MLP as a chain of bf16 torch.nn.functional.linear + relu calls, for
+gather_sum the time of torch.nn.functional.embedding_bag(mode="sum").
 
 It exits non-zero, and prints no result line, when CUDA is unavailable or
 any phase fails. The last line is {"ok": true, "device": {...}}.
@@ -146,6 +180,30 @@ OPT_STEP_OPS = {"gather": "aten::index_select", "segment_sum": "aten::index_add_
 # gradient's sign flipped (the control run below: the best snapshot stays
 # the initial tree).
 OPT_MIN_GAIN_DB = 1.75
+# Gather kernel vs plain (phase 14), at the probes' sizes: K x R indices
+# into a 32k-row (7.3 MB) table of N(0, 1) values, D = 56; the shared-memory
+# variant on its first 1024 rows. Each output sums n rows; kernel and plain
+# version are held to a float64 sum of the same rows: an f32 running sum
+# errs by at most 2^-24 of itself per addition, and a running sum of n
+# zero-mean terms stays within ~4 sqrt(n) rms, so tol = 2^-24 * L * 4
+# sqrt(n) rms with L the kernel's longest chain of additions (rows per lane
+# group + 16 groups + blocks): ~0.4 at these sizes.
+GATHER_K, GATHER_R, GATHER_ROWS, GATHER_SMEM_ROWS, GATHER_D = 256, 8192, 1 << 15, 1024, 56
+# The exact march (phases 15-18). The fast march frame and the served tile
+# frame of one pose (same thresholds; the tile path's within-chunk order is
+# approximate, the march's is per ray) must agree to this PSNR: predicted
+# 35-50 dB before the first run (PERF.md), gated below that.
+MARCH_SERVED_MIN_PSNR = 30.0
+# LPIPS of one image pair on the card vs the CPU: f32 convolutions in
+# another order agree to ~1e-7 relative; TF32 (cuDNN's default for f32
+# convolutions) would move the distance by ~1e-3.
+LPIPS_RTOL = 1e-4
+# The march optimizer's step at 800x800 (chunks as the optimize CLI sizes
+# them on this card), timed over this many steps; its device time by part
+# (the profiler ranges of octree/optimize.py) from one profiled chunk: a
+# profiler window over whole steps of ~10^5 small launches took ~130 s each.
+MARCH_OPT_STEPS = 3
+MARCH_STEP_RANGES = {"march": "pn_march", "shade": "pn_shade", "update": "pn_update"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -398,8 +456,10 @@ def train_throughput():
 def extract_main_path(train_dir):
     """Phase 9: the extract CLI on the train phase's checkpoint."""
     from plenoctree_tpu_torch.cli import extract as extract_cli
+    from plenoctree_tpu_torch.data.poses import orbit_pose
     from plenoctree_tpu_torch.kernels import fused_mlp
     from plenoctree_tpu_torch.octree import N3Tree
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
 
     t0 = time.time()
     out = os.path.join(ROOT, "build", "smoke", "extract", "tree.npz")
@@ -417,18 +477,31 @@ def extract_main_path(train_dir):
         tree = extract_cli.main([
             "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
             "--train_dir", train_dir, "--device", "cuda", "--use_pallas",
-            "--compute_dtype", "bfloat16", "--output", out, "--fast_eval", *EXTRACT_FLAGS,
+            "--compute_dtype", "bfloat16", "--output", out, *EXTRACT_FLAGS,
         ])
     torch.cuda.synchronize()
     launches = fused_mlp.fwd_launches
     with open(out + ".results.json") as f:
         results = json.load(f)
     back = N3Tree.load(out)
+    # One 800x800 frame of this tree through the march, in the eval's mode
+    # (exact, step 1e-5); its accel grid is budgeted (a residual descent).
+    t1 = time.time()
+    vr = VolumeRenderer(tree, step_size=1e-5, device="cuda")
+    build_s = time.time() - t1
+    t1 = time.perf_counter()
+    img = vr.render_persp(orbit_pose(0.0), RES, RES, 1.1 * RES, fast=False)
+    frame_ms = (time.perf_counter() - t1) * 1e3
     phase(
         "extract main path", t0, fwd_launches=launches, leaves=tree.n_leaves,
         reloaded_leaves=back.n_leaves, depth=back.max_depth, eval_psnr=results["psnr"],
         eval_ssim=results["ssim"], step_clock_s=json.dumps(steps),
+        march_800_exact_ms=frame_ms, march_host_build_s=round(build_s, 2),
+        accel_level=vr.arrays["accel_level"], accel_reso=vr.arrays["accel_reso"],
+        K_estimated=vr.contrib_slots, K_exact=vr._get_deferred(False).K,
     )
+    if not (np.isfinite(img).all() and vr.arrays["accel_level"] < back.max_depth + 1):
+        raise RuntimeError("bad march frame of the extracted tree, or an unbudgeted accel grid")
     if launches <= 0:
         raise RuntimeError("the extract CLI never launched the trunk forward kernel")
     if back.n_leaves != tree.n_leaves or back.max_depth != 8 or tree.n_leaves == 0:
@@ -549,6 +622,8 @@ def device_split(prof, kernels, ops, n_steps):
         if t is None:
             t = getattr(ev, "cuda_time_total", 0.0)
         t = t / 1e3 / n_steps
+        if ev.device_type.name == "CUDA" and ev.key in ops.values():
+            continue  # a profiler range's span on the device, not a kernel
         if ev.device_type.name == "CUDA" and t:
             total += t
             top.append((round(t, 3), ev.key[:60], ev.count // n_steps))
@@ -703,7 +778,299 @@ def optimize_main_path(tree):
           val_psnr_after=vals, best_val_psnr=ctrl_best, gain_db=gain, min_gain_db=OPT_MIN_GAIN_DB)
     if not gain < OPT_MIN_GAIN_DB:
         raise RuntimeError(f"a sign-flipped gradient passed the gain check: {gain} dB")
-    return launches[1]
+    return launches[1], best_psnr
+
+
+def gather_vs_plain():
+    """Phase 14: every gather_sum variant against its plain version and a
+    float64 sum at the probes' sizes, with times and bounds; then the probes'
+    entry point (bench_gather.run), the kernel's main path, in process."""
+    import torch.nn.functional as F
+
+    from plenoctree_tpu_torch import bench_gather
+    from plenoctree_tpu_torch.kernels import gather_sum as G
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    dev = "cuda"
+    D = GATHER_D
+    table = torch.tensor(rng.normal(size=(GATHER_ROWS, D)), dtype=torch.float32, device=dev)
+    small = table[:GATHER_SMEM_ROWS].contiguous()
+
+    def idx(rows, shape):
+        return torch.tensor(rng.integers(0, rows, size=shape), dtype=torch.int32, device=dev)
+
+    kr, rk = idx(GATHER_ROWS, (GATHER_K, GATHER_R)), idx(GATHER_ROWS, (GATHER_R, GATHER_K))
+    ks = idx(GATHER_SMEM_ROWS, (GATHER_K, GATHER_R))
+    variants = [  # name, index stream, table, groups, unroll, shared-memory table
+        ("vmem_u1", kr, table, 1, 1, False), ("vmem_u8", kr, table, 1, 8, False),
+        ("tile", kr, table, 8, 1, False), ("vmem_rk", rk, table, 1, 1, False),
+        ("smem_1k", ks, small, 1, 8, True),
+    ]
+    lib = G.build()
+    res = {}
+    for name, ix, tab, groups, unroll, smem in variants:
+        run = lambda: G.gather_sum(ix, tab, groups, unroll, smem)  # noqa: E731
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        ref = G.gather_sum_reference(ix, tab, groups)
+        f64 = tab.double().index_select(0, ix.reshape(-1).long()).reshape(-1, groups, D).sum(0)
+        n = ix.numel()
+        blocks = lib.pn_gather_sum_blocks(n, int(smem))
+        chain = -(-n // (16 * blocks)) + 16 + blocks
+        tol = 2.0**-24 * chain * 4.0 * math.sqrt(n // groups) * float(tab.std())
+        err = float((out.double() - f64).abs().max())
+        plain_err = float((ref.double() - f64).abs().max())
+        # embedding_bag's bags: the whole stream (G = 1), or its 8 residue
+        # classes as the rows of a [8, n/8] index (made once, outside the timing).
+        bags = ix.reshape(1, -1) if groups == 1 else ix.reshape(-1, groups).t().contiguous()
+        lib_err = float((F.embedding_bag(bags, tab, mode="sum").double() - f64).abs().max())
+        distinct = int(torch.unique(ix).numel())
+        bound = bound_of(n * 4 + distinct * D * 4 + groups * D * 4, float(n * D), F32_FLOPS)
+        res[name] = dict(
+            ms=cuda_ms(run, 10), plain_ms=cuda_ms(lambda: G.gather_sum_reference(ix, tab, groups), 5),
+            library_ms=cuda_ms(lambda: F.embedding_bag(bags, tab, mode="sum"), 10),
+            max_abs_err=float((out - ref).abs().max()), err_vs_f64=err, plain_err_vs_f64=plain_err,
+            library_err_vs_f64=lib_err, tol=tol, rerun_equal=bool(torch.equal(out, again)),
+            bound_ms=bound[0], bound_by=bound[1], blocks=blocks, distinct_rows=distinct,
+        )
+        if not (err <= tol and plain_err <= tol and res[name]["rerun_equal"]):
+            raise RuntimeError(f"gather_sum {name} disagrees: {res[name]}")
+    phase("gather kernel vs plain", t0, **{k: json.dumps(v) for k, v in res.items()})
+
+    t0 = time.time()
+    G.launches = 0
+    probes = bench_gather.run()
+    launches = G.launches
+    phase("gather probes (main path)", t0, launches=launches,
+          ns_per_row=json.dumps({k: round(v, 4) for k, v in probes["ns_per_row"].items()}))
+    if launches <= 0 or launches != sum(probes["launches"].values()):
+        raise RuntimeError(f"the probes' gather_sum launches do not add up: {launches}, {probes['launches']}")
+    by_case = probes["launches"]
+    res["vmem_u1"]["launches"] = sum(by_case[c] for c in (
+        "pallas_vmem_u1", "pallas_vmem_u8", "gather_sum_smem_1k", "gather_sum_u8_1k", "gather_sum_u8_1m"))
+    res["tile"]["launches"] = by_case["pallas_vmem_tile"]
+    res["vmem_rk"]["launches"] = by_case["pallas_vmem"]
+    return res
+
+
+def march_full_width(tree, served0):
+    """Phase 15: VolumeRenderer on the depth-7 SH16 tree at 800x800, two
+    orbit poses, exact (step 1e-5) and fast; the fast frame of pose 0 against
+    the served tile frame of that pose (u8, phase 6)."""
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
+
+    t0 = time.time()
+    vr = VolumeRenderer(tree, step_size=1e-5, device="cuda")
+    build_s = time.time() - t0
+    k_est = vr.contrib_slots
+    focal = 1.1 * RES
+    torch.cuda.reset_peak_memory_stats()
+    ms, frames = {}, {}
+    for fast in (False, True):
+        ms[fast] = []
+        for k in range(2):
+            t1 = time.perf_counter()
+            img = vr.render_persp(orbit_pose(2.0 * np.pi * k / N_ORBIT), RES, RES, focal, fast=fast)
+            ms[fast].append((time.perf_counter() - t1) * 1e3)
+            if img.shape != (RES, RES, 3) or not np.isfinite(img).all() or img.min() == img.max():
+                raise RuntimeError(f"bad march frame (fast={fast}, pose {k})")
+            frames[fast, k] = img
+    peak = torch.cuda.max_memory_allocated()
+    u8 = np.round(np.clip(frames[True, 0], 0.0, 1.0) * 255.0)
+    psnr = -10.0 * math.log10(float(np.mean(((u8 - served0) / 255.0) ** 2)))
+    phase(
+        "march full width", t0, host_build_s=round(build_s, 2), exact_ms=ms[False], fast_ms=ms[True],
+        K_estimated=k_est, K_exact=vr._get_deferred(False).K, K_fast=vr._get_deferred(True).K,
+        max_segments=vr.opts.max_segments, accel_level=vr.arrays["accel_level"],
+        accel_reso=vr.arrays["accel_reso"], peak_mem_gib=peak / 2**30,
+        psnr_fast_vs_served=psnr, min_psnr=MARCH_SERVED_MIN_PSNR,
+    )
+    if not psnr >= MARCH_SERVED_MIN_PSNR:
+        raise RuntimeError(f"fast march frame vs served frame: {psnr} dB < {MARCH_SERVED_MIN_PSNR}")
+    return vr, frames
+
+
+def random_lpips_weights(path):
+    """Seeded random VGG16 + LPIPS-head weights in the npz layout (conv
+    kernels HWIO N(0, 0.05), biases N(0, 0.01), heads U(0, 1)): the
+    pretrained weights cannot be downloaded, so the value checks the path
+    and is no perceptual score."""
+    from plenoctree_tpu_torch.ops import lpips
+
+    rng = np.random.default_rng(SEED)
+    w, cin, i = {}, 3, 0
+    for v in lpips._VGG_CFG:
+        if v != "M":
+            w[f"conv{i}/kernel"] = (rng.normal(size=(3, 3, cin, v)) * 0.05).astype(np.float32)
+            w[f"conv{i}/bias"] = (rng.normal(size=(v,)) * 0.01).astype(np.float32)
+            cin, i = v, i + 1
+    for k, (_, c) in enumerate(lpips.tap_structure()):
+        w[f"lin{k}"] = rng.random(size=(c,)).astype(np.float32)
+    np.savez(path, **w)
+
+
+def exact_eval_main_path(tree_path, vr):
+    """Phase 16: the eval CLI without --fast_eval (the march) at 200x200,
+    with random LPIPS weights; LPIPS of one pair on the card vs the CPU."""
+    from plenoctree_tpu_torch.cli import evaluate as eval_cli
+    from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
+    from plenoctree_tpu_torch.kernels import tile_composite
+    from plenoctree_tpu_torch.ops.lpips import get_lpips_fn
+
+    t0 = time.time()
+    weights = os.path.join(ROOT, "build", "smoke", "lpips_random.npz")
+    random_lpips_weights(weights)
+    before = os.environ.get("LPIPS_WEIGHTS_NPZ")
+    os.environ["LPIPS_WEIGHTS_NPZ"] = weights
+    try:
+        tile_composite.launches = 0
+        psnr, ssim, lpips = eval_cli.main([
+            "--input", tree_path, "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--synthetic_resolution", str(EVAL_RES), "--device", "cuda",
+        ])
+        torch.cuda.synchronize()
+        tile_launches = tile_composite.launches
+        images, c2ws, focal = render_synthetic_scene("test", 4, EVAL_RES, True, 2.0, 6.0)
+        im = np.clip(vr.render_persp(c2ws[0], EVAL_RES, EVAL_RES, focal, fast=True), 0.0, 1.0)
+        on_card = get_lpips_fn("cuda")(images[0], im)
+        on_cpu = get_lpips_fn("cpu")(images[0], im)
+    finally:
+        if before is None:
+            del os.environ["LPIPS_WEIGHTS_NPZ"]
+        else:
+            os.environ["LPIPS_WEIGHTS_NPZ"] = before
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    phase("exact eval main path", t0, psnr=psnr, ssim=ssim, lpips_random_weights=lpips,
+          tile_launches=tile_launches, lpips_pair_card=on_card, lpips_pair_cpu=on_cpu,
+          lpips_rel_diff=rel, lpips_rtol=LPIPS_RTOL)
+    if not (math.isfinite(psnr) and math.isfinite(ssim)) or psnr < 25.0 or ssim < 0.8:
+        raise RuntimeError(f"exact eval quality too low: PSNR {psnr}, SSIM {ssim}")
+    if tile_launches != 0:
+        raise RuntimeError("the eval CLI without --fast_eval launched the tile kernel")
+    if not (math.isfinite(lpips) and lpips > 0 and rel <= LPIPS_RTOL):
+        raise RuntimeError(f"bad LPIPS: {lpips}, card {on_card} vs CPU {on_cpu}")
+    return psnr
+
+
+def march_opt_throughput(vr, frames):
+    """Phase 17: the march optimizer's step at 800x800 on the depth-7 tree
+    (TwoPhaseRenderer.loss_grad over chunks + the SGD update), median of
+    MARCH_OPT_STEPS, peak memory; the device time by part and the idle share
+    of one chunk + update from a profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.octree.optimize import (
+        TwoPhaseRenderer, _image_rays, default_slot_budget, image_loss_grad, make_update,
+    )
+    from plenoctree_tpu_torch.octree.renderer import RenderOptions
+
+    t0 = time.time()
+    focal = 1.1 * RES
+    lr = float(OPT_FLAGS[OPT_FLAGS.index("--lr") + 1])
+    opts = RenderOptions(step_size=1e-5, max_segments=vr.opts.max_segments)
+    rend = TwoPhaseRenderer(vr.arrays, vr.fmt, vr.basis_dim, opts, K=vr._get_deferred(False).K)
+    data = rend.data0.clone()  # the renderer's tables stay as they are
+    chunk = default_slot_budget("cuda", data.shape[1]) // rend.K
+    update = make_update(data, True, 0.0, lr)
+    rng = np.random.default_rng(SEED)
+    rays, gts = [], []
+    for k in range(2):
+        rays.append(_image_rays(orbit_pose(2.0 * np.pi * k / N_ORBIT), RES, RES, focal, None))
+        img = frames[False, k] + 0.05 * rng.standard_normal(frames[False, k].shape)
+        gts.append(np.clip(img, 0, 1).astype(np.float32).reshape(-1, 3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(k, one_chunk=False):
+        o, d = rays[k % 2]
+        # One chunk: the one at the middle of the frame (the first rows of
+        # an orbit frame are mostly background).
+        s = slice((o.shape[0] - chunk) // 2, (o.shape[0] + chunk) // 2) if one_chunk else slice(None)
+        sq, grad, over = image_loss_grad(rend, data, o[s], d[s], gts[k % 2][s], chunk)
+        update(grad, float(o[s].shape[0] * 3))
+        return over
+
+    def timed(fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        over = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        if bool(over):
+            raise RuntimeError(f"an optimizer step overflowed K={rend.K}")
+        return e0.elapsed_time(e1)
+
+    step(0)  # warm-up
+    step_ms = [timed(lambda: step(k)) for k in range(MARCH_OPT_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    step_med = float(np.median(step_ms))
+    # One chunk of the step and the update, alone and in a profiler window
+    # (backward on this thread, so the shade's range holds its backward
+    # kernels too).
+    chunk_ms = timed(lambda: step(0, one_chunk=True))
+    with torch.autograd.set_multithreading_enabled(False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(0, one_chunk=True)
+            torch.cuda.synchronize()
+    split, top = device_split(prof, {}, MARCH_STEP_RANGES, 1)
+    device_ms = sum(split.values())
+    phase(
+        "march optimize throughput", t0, res=RES, K=rend.K, chunk=chunk, steps=MARCH_OPT_STEPS,
+        ms_per_step_median=step_med, ms_per_step=step_ms, peak_mem_gib=peak / 2**30,
+        chunk_ms=chunk_ms, chunk_device_ms=device_ms, chunk_device_split_ms=json.dumps(split),
+        chunk_idle_share=1.0 - device_ms / chunk_ms, top_kernels=json.dumps(top),
+    )
+    if not all(math.isfinite(v) for v in step_ms):
+        raise RuntimeError("bad march optimizer step times")
+    if not all(split[k] > 0 for k in MARCH_STEP_RANGES):
+        raise RuntimeError(f"a part of the profiled step shows no device time: {split}")
+    return step_med
+
+
+def march_optimize_main_path(tile_best):
+    """Phase 18: the optimize CLI without --tile_opt (the march) on phase
+    13's washed tree with the same flags; it must not launch a tile kernel."""
+    from plenoctree_tpu_torch.cli import optimize as optimize_cli
+    from plenoctree_tpu_torch.kernels import tile_composite as K
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    t0 = time.time()
+    out_dir = os.path.join(ROOT, "build", "smoke", "optimize")
+    src, dst = os.path.join(out_dir, "tree_washed.npz"), os.path.join(out_dir, "tree_opt_march.npz")
+    K.launches = K.bwd_launches = 0
+    initial, vals = [], []
+
+    def grab(text):
+        for line in text.splitlines():
+            if line.startswith("** initial val psnr"):
+                initial.append(float(line.split()[-1]))
+            elif line.startswith("** val psnr"):
+                vals.append(float(line.split()[3]))
+
+    with contextlib.redirect_stdout(_Tee(grab)):
+        best_tree, best_psnr = optimize_cli.main([
+            "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--synthetic_resolution", str(OPT_RES), "--device", "cuda",
+            "--input", src, "--output", dst, *OPT_FLAGS,
+        ])
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    loaded = N3Tree.load(dst) if os.path.isfile(dst) else None
+    phase(
+        "march optimize main path", t0, tile_launches=launches,
+        initial_val_psnr=initial[0] if initial else None, val_psnr_per_epoch=vals,
+        best_val_psnr=best_psnr, tile_opt_best_val_psnr=tile_best, min_gain_db=OPT_MIN_GAIN_DB,
+        tree_opt_leaves=None if loaded is None else loaded.n_leaves,
+    )
+    if launches != (0, 0):
+        raise RuntimeError(f"the march optimize CLI launched tile kernels: {launches}")
+    if not initial or not best_psnr > initial[0] + OPT_MIN_GAIN_DB:
+        raise RuntimeError(f"val PSNR did not rise by {OPT_MIN_GAIN_DB} dB: {initial} -> {best_psnr}")
+    if loaded is None or best_tree is None or loaded.n_leaves != best_tree.n_leaves:
+        raise RuntimeError("tree_opt_march.npz missing or not the optimized tree")
 
 
 def main():
@@ -713,13 +1080,15 @@ def main():
     sys.path.insert(0, ROOT)
     from plenoctree_tpu_torch.cli import evaluate as eval_cli
     from plenoctree_tpu_torch.data.poses import orbit_pose
-    from plenoctree_tpu_torch.data.synthetic import build_scene_tree
+    from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
     from plenoctree_tpu_torch.kernels import _build
     from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.kernels import gather_sum
     from plenoctree_tpu_torch.kernels import tile_composite
     from plenoctree_tpu_torch.octree import N3Tree
     from plenoctree_tpu_torch.octree.tile_render import TileRenderer
 
+    start = time.time()
     os.chdir(ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -730,10 +1099,11 @@ def main():
     phase("device", t0, card=repr(kind), nvidia_smi=repr(smi), count=torch.cuda.device_count())
 
     t0 = time.time()
-    build_all([tile_composite.build, fused_mlp.build])
+    build_all([tile_composite.build, fused_mlp.build, gather_sum.build])
     phase(
         "kernel build", t0, ptxas=repr(ptxas_summary(_build.build_logs, "tile_composite")),
         trunk_ptxas=repr(ptxas_summary(_build.build_logs, "fused_mlp")),
+        gather_ptxas=repr(ptxas_summary(_build.build_logs, "gather_sum")),
     )
 
     t0 = time.time()
@@ -747,6 +1117,17 @@ def main():
         "model", t0, format=tree.data_format, data_dim=tree.data_dim,
         depth=tree.max_depth, leaves=tree.n_leaves, path=tree_path,
     )
+
+    # The CLIs' synthetic views at 200x200, rendered once on the host: the
+    # renders are memoized in process, and phases 5, 13 (three CLI runs),
+    # 16 and 18 reuse them.
+    t0 = time.time()
+    split_s = {}
+    for split, n_views in (("test", 4), ("train", 12), ("val", 4)):
+        t1 = time.time()
+        render_synthetic_scene(split, n_views, EVAL_RES, True, 2.0, 6.0)
+        split_s[split] = round(time.time() - t1, 2)
+    phase("synthetic views", t0, res=EVAL_RES, seconds_by_split=json.dumps(split_s))
 
     t0 = time.time()
     renderer = TileRenderer(
@@ -821,6 +1202,8 @@ def main():
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         if img.shape != (RES, RES, 3) or img.dtype != np.uint8 or img.min() == img.max():
             raise RuntimeError(f"bad served frame {k}: {img.shape} {img.dtype}")
+        if k == 0:
+            served0 = img.astype(np.float64)  # phase 15's reference for the march
     peak = torch.cuda.max_memory_allocated(dev)
     phase(
         "serving", t0, frames=N_ORBIT, median_ms=float(np.median(frame_ms)),
@@ -839,7 +1222,16 @@ def main():
     optimize_throughput(opt, ti)
     del opt, ti
     torch.cuda.empty_cache()
-    tile_bwd_launches = optimize_main_path(tree)
+    tile_bwd_launches, tile_opt_best = optimize_main_path(tree)
+    torch.cuda.empty_cache()
+    gather = gather_vs_plain()
+    vr, frames = march_full_width(tree, served0)
+    exact_eval_main_path(tree_path, vr)
+    march_opt_throughput(vr, frames)
+    del vr, frames
+    torch.cuda.empty_cache()
+    march_optimize_main_path(tile_opt_best)
+    phase("total", start)
 
     bench_rows = trunk[TRUNK_ROWS[0]]
     print(json.dumps({"kernels": [
@@ -895,6 +1287,26 @@ def main():
             "bound_by": bwd["bound_by"],
             "library_ms": None,
         },
+        *[
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "plenoctree_tpu_torch/csrc/gather_sum.cu",
+                "replaces": replaces,
+                "launches": gather[v]["launches"],
+                "max_abs_err": gather[v]["max_abs_err"],
+                "ms": gather[v]["ms"],
+                "plain_ms": gather[v]["plain_ms"],
+                "bound_ms": gather[v]["bound_ms"],
+                "bound_by": gather[v]["bound_by"],
+                "library_ms": gather[v]["library_ms"],
+            }
+            for name, v, replaces in (
+                ("gather_sum_vmem", "vmem_u1", "scripts/bench_gather.py:103"),
+                ("gather_sum_tile", "tile", "scripts/bench_gather.py:143"),
+                ("gather_sum_vmem_rk", "vmem_rk", "scripts/bench_gather2.py:124"),
+            )
+        ],
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""Evaluate a PlenOctree on the test set with the tile renderer.
+"""Evaluate a PlenOctree on the test set.
 
-Port of plenoctree_tpu/cli/evaluate.py (`--fast_eval` only): render every
-test view from the tree, print PSNR/SSIM/LPIPS, write
-`<input>.results.json`, optionally write images or a video.
+Port of plenoctree_tpu/cli/evaluate.py: render every test view from the
+tree, print PSNR/SSIM/LPIPS, write `<input>.results.json`, optionally write
+images or a video. As in the JAX CLI, the views go through the exact march
+(`VolumeRenderer`) unless `--fast_eval` asks for the tile renderer, the
+serving path. LPIPS is NaN unless VGG-LPIPS weights are found
+($LPIPS_WEIGHTS_NPZ; see ops/lpips.py).
 
 Usage:
   python -m plenoctree_tpu_torch.cli.evaluate --input tree.npz \\
-      --config nerf_sh/config/blender --dataset synthetic --fast_eval
+      --config nerf_sh/config/blender --dataset synthetic [--fast_eval]
 """
 
 import argparse

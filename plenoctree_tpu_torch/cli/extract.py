@@ -5,9 +5,10 @@ Port of plenoctree_tpu/cli/extract.py: restore the newest checkpoint of
 auto-scale the bbox to the sigma support, build the tree from the dense
 grid (sigma or visibility-weight mask), fill the leaves with antialiased
 NeRF samples, relu the sigma channel and save `--output`; then, with
-`--eval` (the default), evaluate it on the test views, which needs
-`--fast_eval` until the exact march is ported. The NeRF is queried on
-`--device` (the fused trunk kernel with --use_pallas on a GPU).
+`--eval` (the default), evaluate it on the test views through the exact
+march, as the JAX CLI does (the tile renderer with `--fast_eval`). The
+NeRF is queried on `--device` (the fused trunk kernel with --use_pallas on
+a GPU).
 
 Not ported (raise NotImplementedError naming ROADMAP.md): use_viewdirs
 models (SH projection) and the SG head.
@@ -15,7 +16,7 @@ models (SH projection) and the SG head.
 Usage:
   python -m plenoctree_tpu_torch.cli.extract --train_dir <ckpt dir> \\
       --config nerf_sh/config/blender --dataset synthetic --use_pallas \\
-      --compute_dtype bfloat16 --output tree.npz --fast_eval
+      --compute_dtype bfloat16 --output tree.npz
 """
 
 import argparse

@@ -1,18 +1,18 @@
 """Optimize a PlenOctree by fine-tuning on the train set.
 
-Port of plenoctree_tpu/cli/optimize.py, `--tile_opt` path: SGD (lr ~1e7)
-or Adam directly on leaf data through the tile compositor and its CUDA
-backward kernel, per-image MSE steps, validation early stopping (the best
-snapshot is saved), optional train-split holdout. The same flags, plus
-`--device` and `--synthetic_resolution`.
-
-Not ported, each raising NotImplementedError that names ROADMAP.md: the
-exact-march optimizer (without `--tile_opt`), and NDC (LLFF) scenes, which
-the JAX CLI sends to the march.
+Port of plenoctree_tpu/cli/optimize.py: SGD (lr ~1e7) or Adam directly on
+leaf data through a differentiable renderer, per-image MSE steps,
+validation early stopping (the best snapshot is saved), optional
+train-split holdout. The same flags, plus `--device` and
+`--synthetic_resolution`. As in the JAX CLI, the default is the exact
+march (octree/optimize.py: march, then a differentiable shade);
+`--tile_opt` optimizes through the tile compositor and its CUDA backward
+kernel instead (octree/tile_opt.py), except for NDC (LLFF) configs, which
+always take the march.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.optimize --input tree.npz \\
-      --config nerf_sh/config/blender --dataset synthetic --tile_opt \\
+      --config nerf_sh/config/blender --dataset synthetic [--tile_opt] \\
       --output tree_opt.npz
 """
 
@@ -22,6 +22,8 @@ import numpy as np
 
 from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.octree import N3Tree
+from plenoctree_tpu_torch.octree.optimize import optimize_tree
+from plenoctree_tpu_torch.octree.renderer import make_ndc_config
 from plenoctree_tpu_torch.octree.tile_opt import optimize_tree_tiles
 from plenoctree_tpu_torch.utils import config as config_lib
 
@@ -48,12 +50,13 @@ def build_parser():
     )
     parser.add_argument(
         "--opt_rays_per_step", type=int, default=0,
-        help="subsample rays per step (march optimizer only; 0 = full image)",
+        help="subsample this many rays per optimizer step instead of the full image "
+        "(unbiased minibatch; march optimizer only; 0 = reference full-image behavior)",
     )
     config_lib.add_bool_flag(
         parser, "tile_opt", False,
         "optimize through the tile-compositing renderer and its CUDA backward "
-        "kernel (the only optimizer ported so far)",
+        "kernel instead of the exact march; not supported for NDC/LLFF",
     )
     parser.add_argument(
         "--tile_grid_c", type=int, default=64, help="tile optimizer coarse partition resolution"
@@ -74,16 +77,6 @@ def main(argv=None):
     """Returns (best_tree or None, best val PSNR)."""
     np.random.seed(20200823)
     args = config_lib.parse_flags(build_parser(), argv)
-    if args.config is not None and "llff" in str(args.config):
-        raise NotImplementedError(
-            "NDC (LLFF) scenes are optimized through the exact march in the JAX "
-            "package, which is not ported yet (ROADMAP.md)"
-        )
-    if not args.tile_opt:
-        raise NotImplementedError(
-            "the exact-march optimizer is not ported yet (ROADMAP.md); pass "
-            "--tile_opt to optimize through the tile renderer"
-        )
 
     def get_data(stage):
         dataset = get_dataset(stage, args)
@@ -105,24 +98,34 @@ def main(argv=None):
     print("N3Tree load", args.input)
     tree = N3Tree.load(args.input)
 
+    H, W = train_gt[0].shape[:2]
+    ndc = (
+        make_ndc_config(W, H, focal)
+        if args.config is not None and "llff" in str(args.config)
+        else None
+    )
     print(f"Using {'SGD' if args.sgd else 'Adam'}, lr {args.lr}")
-    best_tree, best_psnr = optimize_tree_tiles(
-        tree,
-        train_c2w,
-        train_gt,
-        test_c2w,
-        test_gt,
-        focal,
-        args,
+    common = dict(
         num_epochs=args.num_epochs,
         lr=args.lr,
         use_sgd=args.sgd,
         sgd_momentum=args.sgd_momentum,
         val_interval=args.val_interval,
         continue_on_decrease=args.continue_on_decrease,
-        grid_c=args.tile_grid_c,
         device=args.device,
     )
+    if args.tile_opt and ndc is None:
+        best_tree, best_psnr = optimize_tree_tiles(
+            tree, train_c2w, train_gt, test_c2w, test_gt, focal, args,
+            grid_c=args.tile_grid_c, **common,
+        )
+    else:
+        if args.tile_opt:
+            print("tile_opt unsupported with NDC; falling back to the march")
+        best_tree, best_psnr = optimize_tree(
+            tree, train_c2w, train_gt, test_c2w, test_gt, focal, args,
+            ndc=ndc, rays_per_step=args.opt_rays_per_step, **common,
+        )
     if not args.nosave:
         if best_tree is not None:
             print("Saving best model to", args.output)

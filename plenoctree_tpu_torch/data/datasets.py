@@ -164,8 +164,9 @@ class Synthetic(Dataset):
             near=args.near,
             far=args.far,
         )
-        self.images = images
-        self.camtoworlds = camtoworlds
+        # Copies: the rendered views are memoized read-only arrays.
+        self.images = images.copy()
+        self.camtoworlds = camtoworlds.copy()
         self.focal = focal
         self.h, self.w = images.shape[1:3]
         self.resolution = self.h * self.w

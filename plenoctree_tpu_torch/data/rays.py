@@ -1,8 +1,8 @@
-"""Camera ray generation (host numpy).
+"""Camera ray generation and the NDC conversion (host numpy).
 
-A copy of plenoctree_tpu/data/rays.py::generate_rays with its own `Rays`
-type: the JAX package's `data` package imports flax on the way in
-(`types.py`), which the port must not need.
+A copy of plenoctree_tpu/data/rays.py::generate_rays and convert_to_ndc
+with its own `Rays` type: the JAX package's `data` package imports flax on
+the way in (`types.py`), which the port must not need.
 """
 
 import collections
@@ -46,3 +46,21 @@ def generate_rays(w, h, focal, camtoworlds):
         directions=np.ascontiguousarray(directions.astype(np.float32)),
         viewdirs=np.ascontiguousarray(viewdirs.astype(np.float32)),
     )
+
+
+def convert_to_ndc(origins, directions, focal, w, h, near=1.0):
+    """Shift rays to the near plane and project into NDC (LLFF forward-facing)."""
+    t = -(near + origins[..., 2]) / directions[..., 2]
+    origins = origins + t[..., None] * directions
+
+    dx, dy, dz = np.moveaxis(directions, -1, 0)
+    ox, oy, oz = np.moveaxis(origins, -1, 0)
+
+    o0 = -((2 * focal) / w) * (ox / oz)
+    o1 = -((2 * focal) / h) * (oy / oz)
+    o2 = 1 + 2 * near / oz
+    d0 = -((2 * focal) / w) * (dx / dz - ox / oz)
+    d1 = -((2 * focal) / h) * (dy / dz - oy / oz)
+    d2 = -2 * near / oz
+
+    return np.stack([o0, o1, o2], -1), np.stack([d0, d1, d2], -1)

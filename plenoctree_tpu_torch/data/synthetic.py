@@ -6,6 +6,8 @@ by dense quadrature of the volume rendering integral. Same constants and
 same arithmetic, so both packages see identical images for a split.
 """
 
+import functools
+
 import numpy as np
 
 from plenoctree_tpu_torch.data.poses import pose_spherical
@@ -59,10 +61,32 @@ def render_rays_analytic(origins, directions, near, far, n_samples=192, white_bk
     return np.clip(comp, 0.0, 1.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _render_synthetic_scene(split, n_views, resolution, white_bkgd, near, far, density_scale):
+    images, camtoworlds, focal = _render_views(
+        split, n_views, resolution, white_bkgd, near, far, density_scale
+    )
+    images.flags.writeable = False
+    camtoworlds.flags.writeable = False
+    return images, camtoworlds, focal
+
+
 def render_synthetic_scene(split, n_views, resolution, white_bkgd, near, far,
                            density_scale=1.0):
     """Render n_views orbit cameras at `resolution`^2; returns
-    (images [N,H,W,3], camtoworlds [N,4,4], focal)."""
+    (images [N,H,W,3], camtoworlds [N,4,4], focal).
+
+    Memoized in the process on all arguments: the host quadrature takes
+    tens of seconds at 200x200, and every CLI run of a process (eval,
+    optimize, their checks) asks for the same views. The arrays are
+    read-only; copy them to modify."""
+    return _render_synthetic_scene(
+        str(split), int(n_views), int(resolution), bool(white_bkgd), float(near), float(far),
+        float(density_scale),
+    )
+
+
+def _render_views(split, n_views, resolution, white_bkgd, near, far, density_scale):
     radius = 3.2
     offset = {"train": 0.0, "val": 9.0, "test": 15.0}.get(split, 15.0)
     thetas = np.linspace(0, 360, n_views, endpoint=False) + offset

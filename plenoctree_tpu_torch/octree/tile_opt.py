@@ -15,8 +15,8 @@ data every step).
     `leaf_dataT[:, col_leaf]` (index_select), whose autograd is the
     instance -> leaf segment-sum (index_add): the replicas of one leaf sum.
 
-Pinhole scenes only, as in the JAX package (its optimize CLI takes NDC
-scenes through the march, which the port does not have yet).
+Pinhole scenes only, as in the JAX package: the optimize CLI takes NDC
+scenes through the march (octree/optimize.py).
 """
 
 import numpy as np
@@ -27,7 +27,7 @@ from plenoctree_tpu_torch.ops.metrics import compute_psnr
 from plenoctree_tpu_torch.octree.tile_render import (
     RUNROWS, TILE, TileRenderer, _untile, build_tile_index,
 )
-from plenoctree_tpu_torch.utils.checkpoints import TrainState, adam_update
+from plenoctree_tpu_torch.octree.optimize import make_update
 
 _F32 = torch.float32
 
@@ -166,7 +166,7 @@ class TileOptimizer:
         """Returns ((loss, (img, n_max, nc_max, w1_over)), grad_leaf_dataT),
         all tensors on the optimizer's device."""
         leaf = leaf_dataT.detach().requires_grad_(True)
-        gt = torch.as_tensor(np.asarray(gt, np.float32)).to(self.device)
+        gt = torch.tensor(np.asarray(gt, np.float32), device=self.device)
         with torch.enable_grad():
             img, n_max, nc_max, w1_over = self._frame(leaf, c2w, height, width, fx)
             # The reference clamps the render before the MSE
@@ -247,27 +247,7 @@ def optimize_tree_tiles(
             grew = True
         return grew
 
-    if use_sgd:
-        momentum = torch.zeros_like(leaf) if sgd_momentum > 0 else None
-
-        @torch.no_grad()
-        def update(grad):
-            # optax.sgd: trace t = g + momentum * t, then p -= lr * t.
-            if momentum is not None:
-                momentum.mul_(sgd_momentum).add_(grad)
-                grad = momentum
-            leaf.add_(grad * -lr)
-
-    else:
-        adam = TrainState(
-            step=0, params={"leaf": leaf},
-            opt_state={"count": 0, "mu": {"leaf": torch.zeros_like(leaf)},
-                       "nu": {"leaf": torch.zeros_like(leaf)}},
-        )
-
-        def update(grad):
-            # optax.adam(lr, eps=1e-8) = optax.adam(1.0) scaled by lr.
-            adam_update(adam, {"leaf": grad}, lr)
+    update = make_update(leaf, use_sgd, sgd_momentum, lr)
 
     def run_test():
         nonlocal opt
@@ -299,7 +279,7 @@ def optimize_tree_tiles(
                     opt = build(opt)
                     continue
                 break
-            update(grad)
+            update(grad, 1.0)  # the loss is already the image mean
             tpsnr += float(compute_psnr(float(loss)))
         tpsnr /= len(train_c2w)
         print(f"epoch {epoch}: train_psnr {tpsnr:.4f}")

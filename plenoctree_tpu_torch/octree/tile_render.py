@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from plenoctree_tpu_torch.kernels.tile_composite import _fma, composite_tiles
-from plenoctree_tpu_torch.octree.renderer import RenderOptions, _ray_basis
+from plenoctree_tpu_torch.octree.renderer import RenderOptions, _norm3, _ray_basis, resolve_device
 
 TILE = 16  # pixels per tile side (256 rays)
 RUNROWS = 128  # default instance rows per compute chunk
@@ -253,10 +253,6 @@ _GROUP_CORNER_OFF = lambda q: np.array(  # noqa: E731
 def _dot3(a, b):
     """Sum over the last axis (size 3) of a*b, as an f32 FMA chain."""
     return _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
-
-
-def _norm3(v):
-    return torch.sqrt(_dot3(v, v))
 
 
 def _cross(a, b):
@@ -640,12 +636,7 @@ class TileRenderer:
                 "multi-device tile serving (mesh / --shard_devices) is not "
                 "ported yet; see ROADMAP.md"
             )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TileRenderer(device='cuda') but torch.cuda.is_available() is "
-                "False; pass device='cpu' to render on the CPU"
-            )
+        self.device = resolve_device(device, "TileRenderer")
         if output not in ("f32", "u8"):
             raise ValueError(f"output must be 'f32' or 'u8', got {output!r}")
         self.tree = tree
@@ -736,7 +727,7 @@ class TileRenderer:
         fx_t = torch.tensor(float(fx), dtype=_F32, device=dev)
 
         def tile_inputs(c2w, csr, base, extra_data, blk_bbox):
-            c2w = torch.as_tensor(np.asarray(c2w, np.float32)).to(dev)
+            c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
             tiles_x = wp // TILE
             t_idx = torch.arange(n_tiles, dtype=_I32, device=dev)[:, None]
             r_idx = torch.arange(RAYS_T, dtype=_I32, device=dev)[None, :]

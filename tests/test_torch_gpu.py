@@ -12,6 +12,7 @@ import torch
 
 from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
 from plenoctree_tpu_torch.kernels import fused_mlp as F
+from plenoctree_tpu_torch.kernels import gather_sum as G
 from plenoctree_tpu_torch.kernels import tile_composite as K
 from plenoctree_tpu_torch.models.params import init_trunk_params, trunk_weights
 from plenoctree_tpu_torch.octree.tile_opt import CompositeTilesFn, TileOptimizer, optimize_tree_tiles
@@ -32,6 +33,13 @@ TRUNK_GRAD_RTOL = 0.05
 # float atomics add in another order each time (measured <= 1.5e-7).
 BWD_RTOL = 1e-5
 BWD_RERUN_RTOL = 2e-6
+# The march on the card vs the march on the CPU (the same torch ops): the
+# same cells in the same order, f32 sums in another order (measured 1.1e-6
+# on a depth-5 SH16 tree at 101x101). The shade's gradient sums each cell's
+# contributions with float atomics on the card (measured 3.7e-5 of the
+# largest |gradient|).
+MARCH_ATOL = 2e-5
+MARCH_GRAD_RTOL = 2e-4
 
 
 def _need_cuda():
@@ -309,3 +317,81 @@ def test_tile_bwd_rejects_bad_inputs():
         K.composite_tiles_bwd(*p2[:5], p2[5].double(), *p2[6:], soa, out, g, **opt._kw)
     with pytest.raises(ValueError):
         K.composite_tiles_bwd(*p2, soa, out, g, **dict(opt._kw, sigma_row=opt._kw["sigma_row"] + 1))
+
+
+def _gather_tol(n, rms=1.0):
+    """f32 sums of n zero-mean terms vs float64: 2^-24 per addition of a
+    running sum that stays within ~4 sqrt(n) rms (tests/test_torch_gather.py)."""
+    return 2.0**-24 * n * 4.0 * np.sqrt(n) * rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "groups,unroll,smem,rows,n",
+    [(1, 1, False, 32768, 256 * 8192), (1, 8, False, 32768, 256 * 8192),
+     (8, 1, False, 32768, 256 * 8192), (8, 8, False, 32768, 256 * 8192),
+     (1, 8, True, 1024, 256 * 8192), (8, 1, True, 1024, 64 * 8192),
+     (1, 8, False, 1 << 20, 1000003)],
+)
+def test_gather_sum_kernel_matches_reference(groups, unroll, smem, rows, n):
+    """Every variant at the probes' sizes (and a ragged stream on the 1M-row
+    table) against the plain version and a float64 sum; reruns equal."""
+    _need_cuda()
+    rng = np.random.default_rng(rows + n + groups)
+    table = torch.tensor(rng.normal(size=(rows, 56)), dtype=torch.float32, device="cuda")
+    idx = torch.tensor(rng.integers(0, rows, size=n), dtype=torch.int32, device="cuda")
+    before = G.launches
+    out = G.gather_sum(idx, table, groups, unroll, smem)
+    again = G.gather_sum(idx, table, groups, unroll, smem)
+    torch.cuda.synchronize()
+    assert G.launches == before + 2 and torch.equal(out, again)
+    ref = G.gather_sum_reference(idx, table, groups)
+    f64 = table.double().index_select(0, idx.long()).reshape(-1, groups, 56).sum(0)
+    tol = _gather_tol(n // groups)
+    assert float((out.double() - f64).abs().max()) <= tol
+    assert float((ref.double() - f64).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_gather_sum_rejects_bad_inputs():
+    _need_cuda()
+    table = torch.zeros(2048, 56, device="cuda")
+    idx = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        G.gather_sum(idx.long(), table)
+    with pytest.raises(TypeError):
+        G.gather_sum(idx, table.double())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        G.gather_sum(idx, torch.zeros(2048, 50, device="cuda"))
+    with pytest.raises(ValueError, match="shared memory"):
+        G.gather_sum(idx, table, smem_table=True)  # 2048 x 56 x 4 B > 232,448
+    with pytest.raises(ValueError):
+        G.gather_sum(idx.cpu(), table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast", [False, True])
+def test_march_cuda_matches_cpu(fast):
+    """VolumeRenderer on the card against the same renderer on the CPU: a
+    depth-5 SH16 tree at 101x101, exact (step 1e-5) and fast, with the same
+    accel grid; and the march optimizer's shade gradient on both devices."""
+    _need_cuda()
+    from plenoctree_tpu_torch.octree.optimize import TwoPhaseRenderer, _image_rays
+    from plenoctree_tpu_torch.octree.renderer import RenderOptions, VolumeRenderer, tree_arrays
+
+    tree = build_scene_tree(depth=5, basis_dim=16, sh_noise=0.05, seed=1)
+    images, c2ws, focal = render_synthetic_scene("test", 1, 101, True, 2.0, 6.0)
+    rs = [VolumeRenderer(tree, step_size=1e-5, device=dev) for dev in ("cuda", "cpu")]
+    assert torch.equal(rs[0].arrays["accel"].cpu(), rs[1].arrays["accel"])
+    imgs = [r.render_persp(c2ws[0], 101, 101, focal, fast=fast) for r in rs]
+    assert np.abs(imgs[0] - imgs[1]).max() <= MARCH_ATOL
+    o, d = _image_rays(c2ws[0], 101, 101, focal, None)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        opts = RenderOptions(step_size=1e-5, max_segments=96)
+        r = TwoPhaseRenderer(tree_arrays(tree, device=dev), "SH", 16, opts, K=128)
+        gt = torch.tensor(images[0].reshape(-1, 3), device=dev)
+        sq, g, over = r.loss_grad(r.data0, o, d, gt, torch.ones(o.shape[0], 1, device=dev))
+        assert not bool(over)
+        grads.append(g.cpu())
+    assert float((grads[0] - grads[1]).abs().max()) <= MARCH_GRAD_RTOL * float(grads[1].abs().max())

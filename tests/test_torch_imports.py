@@ -1,9 +1,11 @@
 """The port runs on a machine without the JAX package or its dependencies:
 with plenoctree_tpu itself and jax, flax, msgpack, absl, yaml, PIL, imageio
 and tensorboardX blocked, the serving slice imports and renders a frame on
-the CPU, the training slice runs train steps through its CLI with a
-checkpoint save and restore, the conversion slice extracts a tree from that
-checkpoint and optimizes it through their CLIs, and jax stays unimported."""
+the CPU, the march renders one and the gather probes run at a tiny size,
+the training slice runs train steps through its CLI with a checkpoint save
+and restore, the conversion slice extracts a tree from that checkpoint and
+optimizes it through their CLIs (the tile optimizer and the march), the
+eval CLI evaluates it through the march, and jax stays unimported."""
 
 import os
 import subprocess
@@ -19,22 +21,28 @@ for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml
 
 import numpy as np
 import plenoctree_tpu_torch
+import plenoctree_tpu_torch.bench_gather
 import plenoctree_tpu_torch.cli.evaluate
+import plenoctree_tpu_torch.cli.optimize
 import plenoctree_tpu_torch.data
 import plenoctree_tpu_torch.data.datasets
 import plenoctree_tpu_torch.data.poses
 import plenoctree_tpu_torch.data.rays
 import plenoctree_tpu_torch.data.synthetic
 import plenoctree_tpu_torch.kernels._build
+import plenoctree_tpu_torch.kernels.gather_sum
 import plenoctree_tpu_torch.kernels.tile_composite
 import plenoctree_tpu_torch.octree
 import plenoctree_tpu_torch.octree.evaluate
 import plenoctree_tpu_torch.octree.extract
 import plenoctree_tpu_torch.octree.grid_weight
+import plenoctree_tpu_torch.octree.march
 import plenoctree_tpu_torch.octree.n3tree
+import plenoctree_tpu_torch.octree.optimize
 import plenoctree_tpu_torch.octree.renderer
 import plenoctree_tpu_torch.octree.tile_opt
 import plenoctree_tpu_torch.octree.tile_render
+import plenoctree_tpu_torch.ops.lpips
 import plenoctree_tpu_torch.ops.metrics
 import plenoctree_tpu_torch.ops.sh
 import plenoctree_tpu_torch.utils.config
@@ -49,6 +57,11 @@ plenoctree_tpu_torch.utils.config.update_flags(
 tree = build_scene_tree(depth=3)
 img = TileRenderer(tree, grid_c=16, device="cpu").render_persp(orbit_pose(0.3), 16, 16, 17.6)
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.min() < 0.99
+from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
+img = VolumeRenderer(tree, device="cpu").render_persp(orbit_pose(0.3), 15, 15, 16.5)
+assert img.shape == (15, 15, 3) and np.isfinite(img).all() and img.min() < 0.99
+res = plenoctree_tpu_torch.bench_gather.run(40000, 1024, 8, 16, device="cpu")
+assert len(res["ns_per_row"]) == 17
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -113,6 +126,12 @@ optimize_cli.main(model_flags + [
     "--input", tree_path, "--output", opt_path, "--tile_opt", "--num_epochs", "1",
     "--tile_grid_c", "8", "--lr", "1e2", "--nosave",
 ])
+optimize_cli.main(model_flags + [
+    "--input", tree_path, "--output", opt_path, "--num_epochs", "1", "--lr", "1e2", "--nosave",
+])
+import plenoctree_tpu_torch.cli.evaluate as eval_cli
+psnr, ssim, lpips = eval_cli.main(model_flags + ["--input", tree_path])
+assert psnr == psnr and ssim == ssim and lpips != lpips  # finite, finite, NaN
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -286,18 +286,18 @@ def test_write_back_round_trip(pairs):
 
 
 def test_cli_unported_paths_and_missing_gpu_raise(tmp_path, trees):
+    """The LLFF loader is not ported (an LLFF config goes to the march
+    optimizer: tests/test_torch_march_opt.py), and both optimizers raise on
+    --device cuda without a GPU."""
     from plenoctree_tpu_torch.cli import optimize as cli
 
     path = str(tmp_path / "tree.npz")
     trees["sh1"].save(path)
-    base = ["--input", path, "--dataset", "synthetic", "--synthetic_resolution", "16"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(base + ["--device", "cpu"])  # the march optimizer
-    llff = tmp_path / "llff.yaml"  # an LLFF config: the CLI keys NDC on the name
-    llff.write_text("factor: 4\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(base + ["--tile_opt", "--config", str(llff), "--device", "cpu"])
+        cli.main(["--input", path, "--dataset", "llff", "--data_dir", str(tmp_path), "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
-    with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(base + ["--tile_opt", "--num_epochs", "1"])
+    base = ["--input", path, "--dataset", "synthetic", "--synthetic_resolution", "16"]
+    for extra in (["--tile_opt"], []):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(base + extra + ["--num_epochs", "1"])

@@ -344,10 +344,19 @@ def test_eval_cli_end_to_end(tmp_path, monkeypatch):
 
 
 def test_eval_without_fast_eval_raises(tmp_path, trees):
+    """Without --fast_eval the eval CLI renders through the exact march
+    (held to the JAX package in tests/test_torch_march_opt.py). What still
+    raises: --device cuda without a GPU, on that path too, and
+    --shard_devices > 1 with --fast_eval (multi-device serving, not
+    ported)."""
     from plenoctree_tpu_torch.cli import evaluate as cli
 
     path = str(tmp_path / "tree.npz")
     trees["sh1"].save(path)
-    with pytest.raises(NotImplementedError, match="exact-march"):
-        cli.main(["--input", path, "--dataset", "synthetic",
-                  "--synthetic_resolution", "16", "--device", "cpu"])
+    base = ["--input", path, "--dataset", "synthetic", "--synthetic_resolution", "16"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(base + ["--fast_eval", "--shard_devices", "2", "--device", "cpu"])
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device='cuda' is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(base)
