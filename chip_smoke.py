@@ -23,12 +23,22 @@ Phases, one line each with its wall time:
   7. trunk kernel vs plain: the fused trunk's forward and backward kernels
      against their plain versions at the fine MLP's bench shape (786,432 x
      63 -> 8x256 -> 1 + 48, seeded glorot weights and N(0, 0.05) biases,
-     so the bias adds are checked) and at 10,000 rows (the sparsity pass,
-     a ragged tile), with errors and kernel / plain ms;
+     so the bias adds are checked), for each variant: the default, the
+     in-kernel posenc (raw [N, 3] points), the in-kernel SH decode (a
+     degree-3 basis of random directions, rgb [N, 3]) and both, at the row
+     counts the train step gives it (fine 786,432, coarse 262,144, and for
+     the variants without the SH decode the sparsity pass's 10,000, a
+     ragged tile); errors, two backward runs
+     bitwise equal, kernel / plain / library ms, the bound, the backward's
+     workspace floor and the weight bytes read from L2 per row;
   8. train main path: the train CLI (`plenoctree_tpu_torch.cli.train`)
      in-process, 200 steps of the blender SH16 config at batch 4096 with the
-     fused kernels; both launch counts must be > 0, the train PSNR must
-     rise, and the checkpoint must restore with equal params;
+     fused kernels (kernel switches off); both launch counts must be > 0,
+     the train PSNR must rise, and the checkpoint must restore with equal
+     params; then the same CLI for 40 steps with PN_POSENC_IN_KERNEL=1
+     PN_SH_IN_KERNEL=1: both kernels launched, every launch on the posenc
+     variant and the coarse and fine ones on the SH-decode variant (the
+     wrapper's counters), the train PSNR rising;
   9. extract main path: the extract CLI (`plenoctree_tpu_torch.cli.extract`)
      in-process on phase 8's checkpoint_200 with the same model flags and
      octree/config/syn_sh16.json's extraction flags at init_grid_depth 8;
@@ -38,8 +48,9 @@ Phases, one line each with its wall time:
      march frame of that tree (its accel grid is budgeted: a residual
      descent), timed;
  10. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
-     4096: rays/s, ms/step, peak memory, and the trunk kernels' share of
-     device time from one torch.profiler window;
+     4096, with the kernel switches off and then on: rays/s, ms/step, peak
+     memory, and the trunk kernels' share of device time and the idle
+     share from one torch.profiler window;
  11. tile bwd kernel vs plain: on the depth-7 tree in exact mode (the
      optimizer's keep_all index), one 800x800 pose: the tile kernel's
      exact-mode forward against composite_tiles_reference (KERNEL_ATOL),
@@ -94,7 +105,8 @@ the operations this run's data needs over the card's peak for their type
 (989 TFLOP/s bf16 tensor cores for the trunk, 67 TFLOP/s f32 for the tile
 kernels, counting only the slab tests of live rows with sigma > 0 against
 the rays of their pieces' quad groups), and, for the trunk, the time of the
-same MLP as a chain of bf16 torch.nn.functional.linear + relu calls, for
+same MLP as a chain of bf16 torch.nn.functional.linear + relu calls (with
+torch's posenc in front and the SH einsum behind for the variants), for
 gather_sum the time of torch.nn.functional.embedding_bag(mode="sum").
 
 It exits non-zero, and prints no result line, when CUDA is unavailable or
@@ -141,10 +153,25 @@ TRUNK_FWD_ATOL = 6e-3
 # one-ulp difference in dh rounds a dpre element the other way, which then
 # feeds every layer below. Measured with TRUNK_BIAS_STD biases: 8.2e-3 at
 # 786,432 rows, 1.0e-2 at 10,000 (same card; the JAX tests allow 0.05).
+# At 10,000 rows the measure is dominated by the algorithm's own rounding
+# noise: the plain f32 version itself lies 1.2-2.0e-2 (default) and
+# 1.1-2.8e-2 (SH decode) from an f64 evaluation of the same rounding
+# points over six seeds, and the SH decode with this seed reads 2.1e-2 for
+# the kernel and for the plain version alike (PERF.md).
 TRUNK_GRAD_RTOL = 2e-2
 TRUNK_BIAS_STD = 0.05  # trained biases are non-zero: a dropped bias add must show
-TRUNK_ROWS = (786432, 10000)  # the fine MLP's rows at the bench config; sparsity rows
+TRUNK_ROWS = 786432  # the fine MLP's rows at the bench config (the kernels line's cell)
+# Each trunk kernel variant (plenoctree_tpu_torch.bench_trunk.VARIANTS: the
+# default, the in-kernel posenc, the in-kernel SH decode of degree 3, and
+# both, which PN_POSENC_IN_KERNEL=1 PN_SH_IN_KERNEL=1 trains with) at the row counts the training step gives it: the fine pass
+# (786,432 rows), the coarse pass (262,144) and the sparsity points (10,000,
+# a ragged tile). The sparsity pass runs no SH decode (it has no colour), so
+# the SH variants have no 10,000-row cell here; tests/test_torch_gpu.py
+# holds them at 10,000 rows to the JAX tests' bound (see TRUNK_GRAD_RTOL).
+TRUNK_CELLS = {"default": (786432, 262144, 10000), "posenc": (786432, 262144, 10000),
+               "sh": (786432, 262144), "posenc+sh": (786432, 262144)}
 TRAIN_STEPS = 200
+VARIANT_STEPS = 40  # the train CLI with both kernel switches on
 BENCH_BATCH = 4096
 BENCH_STEPS = 100
 # Tile backward kernel vs plain version, per field group relative to the
@@ -261,88 +288,146 @@ def ptxas_summary(build_logs, name):
 
 
 def trunk_vs_plain(dev):
-    """Phase 7: the fused trunk kernels against their plain versions."""
+    """Phase 7: the fused trunk kernels against their plain versions, for
+    every variant at its TRUNK_CELLS row counts, on bench_trunk's draws;
+    returns {(variant, rows): numbers}."""
+    from plenoctree_tpu_torch import bench_trunk
     from plenoctree_tpu_torch.kernels import fused_mlp
     from plenoctree_tpu_torch.models.params import init_trunk_params, trunk_weights
-    from plenoctree_tpu_torch.ops.posenc import posenc
 
     params = init_trunk_params(np.random.default_rng(SEED), 63, 8, 256, 4, 1, 48,
                                bias_std=TRUNK_BIAS_STD)
-    flat, meta = trunk_weights(params, 4, dev)
     results = {}
-    for n in TRUNK_ROWS:
-        t0 = time.time()
-        rng = np.random.default_rng(SEED + n)
-        pts = torch.tensor(rng.uniform(-1.5, 1.5, (n, 3)), dtype=torch.float32, device=dev)
-        x = posenc(pts, 0, 10)
-        gs = torch.tensor(rng.normal(size=(n, 1)) * 1e-3, dtype=torch.float32, device=dev)
-        gr = torch.tensor(rng.normal(size=(n, 48)) * 1e-3, dtype=torch.float32, device=dev)
-        s, r = fused_mlp.fused_trunk(flat, x, meta)
-        grads = fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta)
-        torch.cuda.synchronize()
-        rs, rr = fused_mlp.fused_trunk_reference(flat, x, meta)
-        ref = fused_mlp.fused_trunk_bwd_reference(flat, x, gs, gr, meta)
-        if not all(torch.isfinite(t).all() for t in (s, r, *grads)):
-            raise RuntimeError(f"non-finite fused trunk output at {n} rows")
-        fwd_err = max(float((s - rs).abs().max()), float((r - rr).abs().max()))
-        rel = [float((a - b).abs().max() / (b.abs().max() + 1e-30)) for a, b in zip(grads, ref)]
-        bwd_abs = max(float((a - b).abs().max()) for a, b in zip(grads, ref))
-        fwd_ms = cuda_ms(lambda: fused_mlp.fused_trunk(flat, x, meta), 10)
-        fwd_plain = cuda_ms(lambda: fused_mlp.fused_trunk_reference(flat, x, meta), 3)
-        bwd_ms = cuda_ms(lambda: fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta), 5)
-        bwd_plain = cuda_ms(lambda: fused_mlp.fused_trunk_bwd_reference(flat, x, gs, gr, meta), 3)
-        lib_fwd, lib_bwd = trunk_library(flat, x, gs, gr, meta)
-        phase(
-            f"trunk kernel vs plain ({n} rows)", t0, fwd_max_abs_err=fwd_err,
-            fwd_tol=TRUNK_FWD_ATOL, grad_max_rel_err=max(rel), grad_tol=TRUNK_GRAD_RTOL,
-            grad_rel_per_array=[round(e, 6) for e in rel], fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain,
-            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
-            bound_fwd=trunk_bound(flat, n, 1), bound_bwd=trunk_bound(flat, n, 3),
-        )
-        if not fwd_err <= TRUNK_FWD_ATOL:
-            raise RuntimeError(f"trunk forward disagrees: {fwd_err} > {TRUNK_FWD_ATOL}")
-        if not max(rel) <= TRUNK_GRAD_RTOL:
-            raise RuntimeError(f"trunk backward disagrees: {max(rel)} > {TRUNK_GRAD_RTOL}")
-        results[n] = dict(fwd_err=fwd_err, bwd_abs=bwd_abs, fwd_ms=fwd_ms,
-                          fwd_plain=fwd_plain, bwd_ms=bwd_ms, bwd_plain=bwd_plain,
-                          lib_fwd=lib_fwd, lib_bwd=lib_bwd, bound_fwd=trunk_bound(flat, n, 1),
-                          bound_bwd=trunk_bound(flat, n, 3))
+    for name, (pe, sh_dim) in bench_trunk.VARIANTS.items():
+        flat, meta = trunk_weights(params, 4, dev, pe, sh_dim)
+        for n in TRUNK_CELLS[name]:
+            t0 = time.time()
+            x, basis, gs, gr = bench_trunk.inputs(n, SEED, pe, sh_dim, dev)
+            s, r = fused_mlp.fused_trunk(flat, x, meta, basis)
+            grads = fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+            again = fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+            torch.cuda.synchronize()
+            rerun_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+            del again
+            rs, rr = fused_mlp.fused_trunk_reference(flat, x, meta, basis)
+            ref = fused_mlp.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis)
+            if not all(torch.isfinite(t).all() for t in (s, r, *grads)):
+                raise RuntimeError(f"non-finite fused trunk output ({name}, {n} rows)")
+            if r.shape != rr.shape:
+                raise RuntimeError(f"rgb shape {tuple(r.shape)}, want {tuple(rr.shape)}")
+            fwd_err = max(float((s - rs).abs().max()), float((r - rr).abs().max()))
+            rel = [float((a - b).abs().max() / (b.abs().max() + 1e-30)) for a, b in zip(grads, ref)]
+            bwd_abs = max(float((a - b).abs().max()) for a, b in zip(grads, ref))
+            del rs, rr, ref
+            fwd = lambda: fused_mlp.fused_trunk(flat, x, meta, basis)
+            bwd = lambda: fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+            fwd_ms = cuda_ms(fwd, 10)
+            bwd_ms = cuda_ms(bwd, 5)
+            fwd_plain = cuda_ms(lambda: fused_mlp.fused_trunk_reference(flat, x, meta, basis), 3)
+            bwd_plain = cuda_ms(
+                lambda: fused_mlp.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis), 3)
+            lib_fwd, lib_bwd = trunk_library(flat, x, gs, gr, meta, basis)
+            bound_fwd = trunk_bound(flat, meta, n, 1)
+            bound_bwd = trunk_bound(flat, meta, n, 3)
+            res = dict(fwd_err=fwd_err, bwd_abs=bwd_abs, fwd_ms=fwd_ms, fwd_plain=fwd_plain,
+                       bwd_ms=bwd_ms, bwd_plain=bwd_plain, lib_fwd=lib_fwd, lib_bwd=lib_bwd,
+                       bound_fwd=bound_fwd, bound_bwd=bound_bwd, rerun_equal=rerun_equal,
+                       ws_floor_ms=trunk_workspace_floor(meta, n),
+                       **trunk_l2_bytes_per_row(meta))
+            phase(
+                f"trunk kernel vs plain ({name}, {n} rows)", t0, fwd_max_abs_err=fwd_err,
+                fwd_tol=TRUNK_FWD_ATOL, grad_max_rel_err=max(rel), grad_tol=TRUNK_GRAD_RTOL,
+                grad_rel_per_array=[round(e, 6) for e in rel], bwd_rerun_bitwise_equal=rerun_equal,
+                fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
+                library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd, bound_fwd=bound_fwd,
+                bound_bwd=bound_bwd, bwd_workspace_floor_ms=res["ws_floor_ms"],
+                l2_weight_bytes_per_row_fwd=res["l2_fwd"], l2_weight_bytes_per_row_bwd=res["l2_bwd"],
+            )
+            if not fwd_err <= TRUNK_FWD_ATOL:
+                raise RuntimeError(f"trunk forward disagrees ({name}): {fwd_err} > {TRUNK_FWD_ATOL}")
+            if not max(rel) <= TRUNK_GRAD_RTOL:
+                raise RuntimeError(
+                    f"trunk backward disagrees ({name}): {max(rel)} > {TRUNK_GRAD_RTOL}")
+            if not rerun_equal:
+                raise RuntimeError(f"trunk backward reruns differ ({name}, {n} rows)")
+            results[name, n] = res
+            del x, basis, gs, gr, s, r, grads
+            torch.cuda.empty_cache()
     return results
 
 
-def trunk_bound(flat, n, passes):
+def trunk_bound(flat, meta, n, passes):
     """The trunk's bound at n rows: 2 flops per multiply-add of every layer
     (passes=1 forward; 3 for the weight gradients: recompute, cotangents
-    through the layers, dW) at the bf16 tensor-core peak, against x, the
-    weights and the outputs (forward) or cotangents and weight gradients
-    (backward) in f32 once each at the memory rate."""
+    through the layers, dW) at the bf16 tensor-core peak, against the bytes
+    each call must move once at the memory rate: x (the raw [n, 3] points
+    under posenc, else [n, 63]) and the basis [n, K] with the SH decode,
+    the weights, and the outputs [n, 1 + C] (forward) or the cotangents
+    and the weight gradients (backward), in f32. The posenc sines and the
+    decode's multiply-adds are not counted (under 1% of the flops)."""
     macs = sum(w.shape[0] * w.shape[1] for w in flat[0::2])
     flops = 2.0 * n * macs * passes
-    d_in, d_out = flat[0].shape[0], flat[-1].shape[1]
+    sh = meta.get("sh_dim") or 0
+    x_cols = 3 if meta.get("posenc") else meta["d_in"]
+    out_cols = meta["n_sigma"] + ((meta["d_out"] - meta["n_sigma"]) // sh if sh else
+                                  meta["d_out"] - meta["n_sigma"])
     weights = sum(w.numel() for w in flat) * 4
-    nbytes = 4.0 * n * (d_in + d_out) + weights * (1 if passes == 1 else 2)
+    nbytes = 4.0 * n * (x_cols + sh + out_cols) + weights * (1 if passes == 1 else 2)
     return bound_of(nbytes, flops, BF16_TC_FLOPS)
 
 
-def trunk_library(flat, x, gs, gr, meta):
+def trunk_workspace_floor(meta, n):
+    """ms to write and read once, at the memory rate, the backward's
+    workspace: per row each layer's bf16 input image (the x tile, every
+    activation) and cotangent image (every layer's dpre)."""
+    from plenoctree_tpu_torch.kernels import fused_mlp
+
+    lay = fused_mlp._layout(meta)
+    per_row = 2 * (lay.xp + meta["depth"] * meta["width"] + sum(l[2] for l in lay.layers))
+    return 2.0 * per_row * n / HBM_BYTES_PER_S * 1e3
+
+
+def trunk_l2_bytes_per_row(meta):
+    """Weight bytes the kernels stream from L2 per row: the slabs a 128-row
+    block tile reads, over 128 (forward: layers 0..depth; backward pass 1:
+    the recompute's, without the head, and the dh products')."""
+    from plenoctree_tpu_torch.kernels import fused_mlp
+
+    lay = fused_mlp._layout(meta)
+    fwd = lay.slabs[lay.n_fwd][4] if lay.n_fwd < len(lay.slabs) else lay.stream_bytes
+    head = fwd - min(off for i, _, _, _, off in lay.slabs[: lay.n_fwd] if i == meta["depth"])
+    return {"l2_fwd": fwd / 128.0, "l2_bwd": (lay.stream_bytes - head) / 128.0}
+
+
+def trunk_library(flat, x, gs, gr, meta, basis=None):
     """The same MLP as a chain of bf16 torch.nn.functional.linear + relu
-    calls (cuBLAS): ms of the forward, and of forward + autograd backward to
-    the weights (the kernel's backward recomputes the forward too)."""
+    calls (cuBLAS), with torch's posenc in front and the SH einsum behind
+    for the variants: ms of the forward, and of forward + autograd backward
+    to the weights (the kernel's backward recomputes the forward too)."""
     import torch.nn.functional as F
 
-    depth, skip = meta["depth"], meta["skip_layer"]
+    from plenoctree_tpu_torch.ops.posenc import posenc
+
+    depth, skip, pe = meta["depth"], meta["skip_layer"], meta.get("posenc")
+    sh = meta.get("sh_dim") or 0
     w = [t.t().contiguous().bfloat16().requires_grad_() for t in flat[0::2]]
     b = [t.reshape(-1).bfloat16().requires_grad_() for t in flat[1::2]]
-    xb = x.bfloat16()
     g = torch.cat([gs, gr], dim=-1).bfloat16()
 
     def chain():
+        xb = (posenc(x, pe[0], pe[1]) if pe else x).bfloat16()
         h = xb
         for i in range(depth):
             h = F.relu(F.linear(h, w[i], b[i]))
             if i % skip == 0 and i > 0:
                 h = torch.cat([h, xb], dim=-1)
-        return F.linear(h, w[depth], b[depth])
+        out = F.linear(h, w[depth], b[depth])
+        if sh:
+            ns = meta["n_sigma"]
+            rgb = torch.einsum("nck,nk->nc", out[:, ns:].float().reshape(out.shape[0], -1, sh),
+                               basis)
+            out = torch.cat([out[:, :ns].float(), rgb], dim=-1).bfloat16()
+        return out
 
     def fwd():
         with torch.no_grad():
@@ -434,22 +519,94 @@ def train_main_path(dev):
     return launches, train_dir
 
 
-def train_throughput():
-    """Phase 9: the port's bench at batch 4096."""
+@contextlib.contextmanager
+def kernel_switches(on):
+    """PN_POSENC_IN_KERNEL and PN_SH_IN_KERNEL set to 1 (on) or unset for
+    the block, as a user sets them for the train CLI and the bench."""
+    names = ("PN_POSENC_IN_KERNEL", "PN_SH_IN_KERNEL")
+    old = {k: os.environ.get(k) for k in names}
+    for k in names:
+        if on:
+            os.environ[k] = "1"
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_variants_path():
+    """Phase 8b: the train CLI with both kernel switches on, VARIANT_STEPS
+    steps on phase 8's data and flags: both trunk kernels launched, every
+    launch on the variant path (the wrapper's variant counters), train PSNR
+    rising."""
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.utils.metrics_writer import read_scalars
+
+    t0 = time.time()
+    train_dir = tempfile.mkdtemp(prefix="train_var_", dir=os.path.join(ROOT, "build", "smoke"))
+    fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+    fused_mlp.posenc_launches = fused_mlp.sh_launches = 0
+    with kernel_switches(True), open(os.path.join(train_dir, "train.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        train_cli.main([
+            "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", "--use_pallas",
+            "--compute_dtype", "bfloat16", "--batch_size", str(BENCH_BATCH), "--image_batching",
+            "--max_steps", str(VARIANT_STEPS), "--lr_final", "5e-5", "--print_every", "1",
+            "--save_every", str(VARIANT_STEPS), "--render_every", str(10 * VARIANT_STEPS),
+        ])
+    torch.cuda.synchronize()
+    counts = dict(fwd=fused_mlp.fwd_launches, bwd=fused_mlp.bwd_launches,
+                  posenc=fused_mlp.posenc_launches, sh=fused_mlp.sh_launches)
+    psnr = [v for _, v in read_scalars(train_dir, "train_psnr")]
+    first, last = float(np.mean(psnr[:10])), float(np.mean(psnr[-10:]))
+    phase("train main path (PN_POSENC_IN_KERNEL=1 PN_SH_IN_KERNEL=1)", t0, steps=len(psnr),
+          launches=json.dumps(counts), psnr_first10=first, psnr_last10=last)
+    # Every step launches 3 forwards (coarse, fine, sparsity points) and 3
+    # backwards, all with the in-kernel posenc; the SH decode runs in the
+    # coarse and fine ones (the sparsity points need no colour).
+    if min(counts["fwd"], counts["bwd"]) <= 0:
+        raise RuntimeError(f"the variant train run did not launch both trunk kernels: {counts}")
+    if counts["posenc"] != counts["fwd"] + counts["bwd"]:
+        raise RuntimeError(f"not every trunk launch took the in-kernel posenc: {counts}")
+    if counts["sh"] != 2 * (counts["fwd"] + counts["bwd"]) // 3:
+        raise RuntimeError(f"the SH decode did not run in the coarse and fine passes: {counts}")
+    if len(psnr) != VARIANT_STEPS or not all(math.isfinite(v) for v in psnr):
+        raise RuntimeError(f"bad variant train PSNR trace ({len(psnr)} values)")
+    if not last > first:
+        raise RuntimeError(f"variant train PSNR did not rise: first 10 {first}, last 10 {last}")
+    return counts
+
+
+def train_throughput(switches_on):
+    """Phase 10: the port's bench at batch 4096, with the kernel switches
+    off or on."""
     from plenoctree_tpu_torch import bench
 
     t0 = time.time()
-    res = bench.run(BENCH_BATCH, BENCH_STEPS, profile_window=3)
+    with kernel_switches(switches_on):
+        res = bench.run(BENCH_BATCH, BENCH_STEPS, profile_window=3)
     phase(
-        "train throughput", t0, rays_per_sec=res["rays_per_sec"],
-        ms_per_step=res["ms_per_step"], peak_mem_gib=res["peak_mem_gib"],
-        device_ms_per_step=res["device_ms_per_step"],
+        f"train throughput (switches {'on' if switches_on else 'off'})", t0,
+        posenc_in_kernel=res["posenc_in_kernel"], sh_in_kernel=res["sh_in_kernel"],
+        rays_per_sec=res["rays_per_sec"], ms_per_step=res["ms_per_step"],
+        peak_mem_gib=res["peak_mem_gib"], device_ms_per_step=res["device_ms_per_step"],
         trunk_kernel_ms_per_step=res["trunk_kernel_ms_per_step"],
-        trunk_share=res["trunk_share"], top_kernels=json.dumps(res["top_kernels"]),
+        trunk_share=res["trunk_share"], idle_share=res["idle_share"],
+        top_kernels=json.dumps(res["top_kernels"]),
         vs_baseline=res["rays_per_sec"] / bench.BASELINE_RAYS_PER_SEC,
     )
     if not (math.isfinite(res["rays_per_sec"]) and math.isfinite(res["final_psnr"])):
         raise RuntimeError(f"bad bench result {res}")
+    if (res["posenc_in_kernel"], res["sh_in_kernel"]) != (switches_on, switches_on):
+        raise RuntimeError(f"the bench ran with other switches: {res}")
     return res
 
 
@@ -1214,9 +1371,13 @@ def main():
     torch.cuda.empty_cache()
 
     trunk = trunk_vs_plain(dev)
-    (fwd_launches, bwd_launches), train_dir = train_main_path(dev)
-    extract_main_path(train_dir)
-    train_throughput()
+    with kernel_switches(False):
+        (fwd_launches, bwd_launches), train_dir = train_main_path(dev)
+    train_variants_path()
+    with kernel_switches(False):
+        extract_main_path(train_dir)
+    train_throughput(False)
+    train_throughput(True)
     torch.cuda.empty_cache()
     opt, ti, bwd = tile_bwd_vs_plain(tree)
     optimize_throughput(opt, ti)
@@ -1233,7 +1394,7 @@ def main():
     march_optimize_main_path(tile_opt_best)
     phase("total", start)
 
-    bench_rows = trunk[TRUNK_ROWS[0]]
+    bench_rows = trunk["default", TRUNK_ROWS]
     print(json.dumps({"kernels": [
         {
             "name": "tile_composite",
@@ -1254,7 +1415,7 @@ def main():
             "source": "plenoctree_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "plenoctree_tpu/kernels/fused_mlp.py:185",
             "launches": fwd_launches,
-            "max_abs_err": max(r["fwd_err"] for r in trunk.values()),
+            "max_abs_err": max(r["fwd_err"] for r in trunk.values()),  # every variant
             "ms": bench_rows["fwd_ms"],
             "plain_ms": bench_rows["fwd_plain"],
             "bound_ms": bench_rows["bound_fwd"][0],
@@ -1267,7 +1428,7 @@ def main():
             "source": "plenoctree_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "plenoctree_tpu/kernels/fused_mlp.py:268",
             "launches": bwd_launches,
-            "max_abs_err": max(r["bwd_abs"] for r in trunk.values()),
+            "max_abs_err": max(r["bwd_abs"] for r in trunk.values()),  # every variant
             "ms": bench_rows["bwd_ms"],
             "plain_ms": bench_rows["bwd_plain"],
             "bound_ms": bench_rows["bound_bwd"][0],

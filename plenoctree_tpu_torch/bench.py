@@ -8,13 +8,16 @@ SH degree 3, 64 coarse + 128 fine samples, sparsity loss on 10,000
 points), bf16 compute with the fused trunk kernels, the procedural
 synthetic dataset, 5 warm-up steps, then BENCH_STEPS (100) timed steps of
 BENCH_BATCH (4096) rays. Env knobs as in bench.py: BENCH_BATCH,
-BENCH_STEPS.
+BENCH_STEPS; and the model's kernel switches PN_POSENC_IN_KERNEL=1 and
+PN_SH_IN_KERNEL=1 (the fused trunk's in-kernel posenc and SH decode),
+which the JSON line reports.
 
 Baseline: JaxNeRF on one V100 trains ~17,000 rays/s/GPU (bench.py's
 docstring); vs_baseline = rays_per_sec_per_chip / 17000.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}. It needs
-a CUDA device and fails without one.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
+"posenc_in_kernel", "sh_in_kernel"}. It needs a CUDA device and fails
+without one.
 """
 
 import json
@@ -25,6 +28,14 @@ import time
 import torch
 
 BASELINE_RAYS_PER_SEC = 17000.0
+
+
+def switches():
+    """The model's fused-kernel variant switches as this process sets them."""
+    return {
+        "posenc_in_kernel": os.environ.get("PN_POSENC_IN_KERNEL", "0") == "1",
+        "sh_in_kernel": os.environ.get("PN_SH_IN_KERNEL", "0") == "1",
+    }
 
 
 def bench_config(batch_size):
@@ -40,8 +51,9 @@ def bench_config(batch_size):
 
 def run(batch_size=4096, steps=100, profile_window=0):
     """Train 5 warm-up + `steps` steps on the bench config; returns a dict of
-    rays/s, ms/step, peak device memory and (with profile_window > 0) the
-    fused trunk kernels' share of device time over that many extra steps."""
+    rays/s, ms/step, peak device memory, the variant switches and (with
+    profile_window > 0) the fused trunk kernels' share of device time over
+    that many extra steps, and the idle share 1 - device ms / ms per step."""
     from plenoctree_tpu_torch import engine
     from plenoctree_tpu_torch.data import get_dataset
     from plenoctree_tpu_torch.models.nerf import get_model_state
@@ -70,9 +82,11 @@ def run(batch_size=4096, steps=100, profile_window=0):
         "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "final_psnr": float(stats.psnr),
         "device": torch.cuda.get_device_name(0),
+        **switches(),
     }
     if profile_window:
         out.update(_profile(train_step, state, batches, gen, profile_window))
+        out["idle_share"] = 1.0 - out["device_ms_per_step"] / out["ms_per_step"]
     return out
 
 
@@ -92,7 +106,7 @@ def _profile(train_step, state, batches, gen, n_steps):
         if ev.device_type.name != "CUDA" or not t:
             continue
         total += t
-        if any(k in ev.key for k in ("fwd_kernel", "bwd_rows_kernel", "atb_kernel", "colsum_kernel")):
+        if any(k in ev.key for k in ("fwd_kernel", "bwd_rows_kernel", "atb_kernel", "colsum")):
             trunk += t
         top.append((t, ev.key, ev.count))
     top.sort(reverse=True)
@@ -115,6 +129,7 @@ def main():
         "value": round(per_chip, 1),
         "unit": f"rays/s/chip (batch {batch_size}, 64c+128f, 8x256 SH16, {res['device']})",
         "vs_baseline": round(per_chip / BASELINE_RAYS_PER_SEC, 3),
+        **switches(),
     }))
     return 0
 

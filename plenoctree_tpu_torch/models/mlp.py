@@ -84,9 +84,9 @@ class TrunkMLP(nn.Module):
             raw_sigma.reshape(-1, num_samples, self.num_sigma_channels),
         )
 
-    def flat_weights(self):
+    def flat_weights(self, posenc=None, sh_dim=0):
         """(flat_w, meta) of the fused kernels, built from the parameters with
-        differentiable ops."""
+        differentiable ops; meta as pack_params_traced(..., posenc, sh_dim)."""
         layers = self.layers()
         depth = self.net_depth
         flat = []
@@ -98,14 +98,24 @@ class TrunkMLP(nn.Module):
         meta = dict(
             depth=depth, d_in=self.d_in, width=self.net_width,
             d_out=self.num_sigma_channels + self.num_rgb_channels,
-            skip_layer=self.skip_layer, posenc=None, x_dim=self.d_in,
-            n_sigma=self.num_sigma_channels, sh_dim=0,
+            skip_layer=self.skip_layer, posenc=posenc, x_dim=3 if posenc else self.d_in,
+            n_sigma=self.num_sigma_channels, sh_dim=sh_dim,
         )
         return flat, meta
 
-    def fused_enc(self, x):
-        """Fused kernel path: x [N, d_in] encoded points -> (raw_rgb [N, C],
-        raw_sigma [N, n_sigma]) f32; gradients reach the weights, not x."""
-        flat, meta = self.flat_weights()
-        raw_sigma, raw_rgb = fused_mlp.FusedTrunkFn.apply(meta, x, *flat)
+    def fused_enc(self, x, basis=None, posenc=None):
+        """Fused kernel path, as the flax TrunkMLP.fused_enc.
+
+        x: [N, d_in] encoded points, or with `posenc` = (min_deg, max_deg)
+        the raw [N, 3] points, encoded inside the kernel. basis: optional
+        per-row SH basis [N, K]; the head's C*K coefficients are then
+        contracted against it in the kernel's epilogue and raw_rgb comes
+        back decoded, [N, C]. Returns (raw_rgb, raw_sigma [N, n_sigma]) f32;
+        gradients reach the weights, not x or the basis.
+        """
+        sh_dim = 0 if basis is None else basis.shape[-1]
+        flat, meta = self.flat_weights(posenc, sh_dim)
+        if basis is not None:
+            basis = basis.float()
+        raw_sigma, raw_rgb = fused_mlp.FusedTrunkFn.apply(meta, x, basis, *flat)
         return raw_rgb, raw_sigma

@@ -6,10 +6,15 @@ posenc -> MLP_0 -> SH decode -> compositing -> inverse-CDF fine resampling
 -> MLP_1 -> compositing. Submodules are named MLP_0 / MLP_1, so the
 state_dict keys are flax's parameter paths (models/params.py).
 
+With use_pallas the trunks run through the fused kernels, and, as in the
+JAX package, two opt-in switches move more into them:
+PN_POSENC_IN_KERNEL=1 (the kernels encode the raw points: training,
+sparsity points and extraction's queries) and PN_SH_IN_KERNEL=1 (the
+training forward's SH decode in the head's epilogue, against a basis
+computed once per ray).
+
 Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-use_viewdirs (the view-conditioned branch), the SG head (sg_dim > 0), and
-the fused kernels' opt-in in-kernel posenc / SH decode
-(PN_POSENC_IN_KERNEL, PN_SH_IN_KERNEL).
+use_viewdirs (the view-conditioned branch) and the SG head (sg_dim > 0).
 
 Random draws come from an explicit torch.Generator, or ready-made through
 `draws` (keys 't_rand' [B, Sc], 'noise_c' [B, Sc], 'u' [B, Sf + 1],
@@ -86,19 +91,32 @@ class NerfModel(nn.Module):
         use = self.use_pallas if use_pallas is None else use_pallas
         return use and not self.legacy_posenc_order
 
-    def _query_mlp(self, mlp, samples, fused):
-        """posenc + trunk on [B, S, 3] samples (the fused kernels when on)."""
+    def _query_mlp(self, mlp, samples, fused, basis=None):
+        """posenc + trunk on [B, S, 3] samples (the fused kernels when on).
+
+        basis (fused path only): the per-ray SH basis [B, K]; the kernel
+        then decodes the colour head in its epilogue and raw_rgb comes back
+        as [B, S, C] (callers skip _decode_color). With PN_POSENC_IN_KERNEL=1
+        the kernels encode the raw points themselves.
+        """
         b, s = samples.shape[0], samples.shape[1]
-        enc = posenc(samples, self.min_deg_point, self.max_deg_point, self.legacy_posenc_order)
         if not fused:
-            return mlp(enc)
-        for var in ("PN_POSENC_IN_KERNEL", "PN_SH_IN_KERNEL"):
-            if os.environ.get(var, "0") == "1":
-                raise NotImplementedError(
-                    f"{var}: the fused trunk's in-kernel variants are not ported yet "
-                    "(ROADMAP.md, B1/B2)"
-                )
-        raw_rgb, raw_sigma = mlp.fused_enc(enc.reshape(-1, enc.shape[-1]))
+            return mlp(posenc(samples, self.min_deg_point, self.max_deg_point,
+                              self.legacy_posenc_order))
+        basis_rows = None
+        if basis is not None:
+            k = basis.shape[-1]
+            basis_rows = basis[:, None, :].expand(b, s, k).reshape(-1, k)
+        pe = None
+        if (self.min_deg_point < self.max_deg_point
+                and os.environ.get("PN_POSENC_IN_KERNEL", "0") == "1"):
+            pe = (self.min_deg_point, self.max_deg_point)
+            mlp_in = samples.reshape(-1, samples.shape[-1])
+        else:
+            enc = posenc(samples, self.min_deg_point, self.max_deg_point,
+                         self.legacy_posenc_order)
+            mlp_in = enc.reshape(-1, enc.shape[-1])
+        raw_rgb, raw_sigma = mlp.fused_enc(mlp_in, basis=basis_rows, posenc=pe)
         return raw_rgb.reshape(b, s, -1), raw_sigma.reshape(b, s, -1)
 
     def _decode_color(self, raw_rgb, viewdirs):
@@ -139,6 +157,11 @@ class NerfModel(nn.Module):
             randomized, self.lindisp, generator, d.get("t_rand"),
         )
         viewdirs = rays.viewdirs[:, None]
+        # In-kernel SH decode (opt-in, PN_SH_IN_KERNEL=1): the basis is per
+        # ray, computed once here and contracted in the head's epilogue.
+        decode_fused = (fused and self.sh_deg >= 0
+                        and os.environ.get("PN_SH_IN_KERNEL", "0") == "1")
+        basis = sh_basis(self.sh_deg, rays.viewdirs) if decode_fused else None
         ret = []
         weights = None
         for level, mlp in enumerate((self.MLP_0, self.MLP_1)):
@@ -150,14 +173,16 @@ class NerfModel(nn.Module):
                     z_vals_mid, weights[..., 1:-1], rays.origins, rays.directions, z_vals,
                     self.num_fine_samples, randomized, generator, d.get("u"),
                 )
-            raw_rgb, raw_sigma = self._query_mlp(mlp, samples, fused)
+            raw_rgb, raw_sigma = self._query_mlp(mlp, samples, fused, basis)
             if raw_sigma.shape[-1] == 1:
                 raw_sigma = raw_sigma[..., 0]  # the [B, S] sigma form
             raw_sigma = ops_sampling.add_gaussian_noise(
                 raw_sigma, self.noise_std, randomized, generator,
                 d.get("noise_c" if level == 0 else "noise_f"),
             )
-            rgb = self.rgb_activation(self._decode_color(raw_rgb, viewdirs))
+            if not decode_fused:
+                raw_rgb = self._decode_color(raw_rgb, viewdirs)
+            rgb = self.rgb_activation(raw_rgb)
             sigma = self.sigma_activation(raw_sigma)
             comp_rgb, disp, acc, weights = volumetric_rendering(
                 rgb, sigma, z_vals, rays.directions, white_bkgd=self.white_bkgd

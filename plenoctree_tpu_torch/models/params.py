@@ -77,9 +77,10 @@ def init_trunk_params(rng, d_in, depth, width, skip, n_sigma, n_rgb, bias_std=0.
     return params
 
 
-def trunk_weights(params, skip_layer, device=None):
+def trunk_weights(params, skip_layer, device=None, posenc=None, sh_dim=0):
     """A trunk's flax params -> (flat_w, meta) of the fused kernels (f32,
-    detached), packed by TrunkMLP.flat_weights as the model packs them."""
+    detached), packed by TrunkMLP.flat_weights as the model packs them (with
+    the kernels' in-kernel posenc / SH decode variants when asked)."""
     from plenoctree_tpu_torch.models.mlp import TrunkMLP
 
     names = sorted(params, key=lambda k: int(k.split("_")[1]))
@@ -89,5 +90,5 @@ def trunk_weights(params, skip_layer, device=None):
     n_rgb = np.asarray(params[names[depth + 1]]["kernel"]).shape[1]
     mlp = TrunkMLP(k0.shape[0], depth, k0.shape[1], skip_layer, n_rgb, n_sigma)
     mlp.load_state_dict(params_from_flax(params))
-    flat, meta = mlp.flat_weights()
+    flat, meta = mlp.flat_weights(posenc, sh_dim)
     return [t.detach() if device is None else t.detach().to(device) for t in flat], meta

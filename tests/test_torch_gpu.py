@@ -96,9 +96,9 @@ def test_wrapper_rejects_bad_inputs():
         K.composite_tiles(*p2[:5], p2[5].cpu(), *p2[6:], r.index["soa"], **r._kernel_kw)
 
 
-def _trunk(depth, width, n_rgb, seed, device="cuda"):
+def _trunk(depth, width, n_rgb, seed, device="cuda", posenc=None, sh_dim=0):
     params = init_trunk_params(np.random.default_rng(seed), 63, depth, width, 4, 1, n_rgb, 0.05)
-    return trunk_weights(params, 4, device)
+    return trunk_weights(params, 4, device, posenc, sh_dim)
 
 
 def _grad_rel_errs(got, want):
@@ -135,10 +135,64 @@ def test_fused_trunk_autograd_on_cuda():
     flat, meta = _trunk(6, 64, 12, seed=3)
     x = torch.randn(1500, 63, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     w = [t.clone().requires_grad_() for t in flat]
-    s, r = F.FusedTrunkFn.apply(meta, x, *w)
+    s, r = F.FusedTrunkFn.apply(meta, x, None, *w)
     (s.square().sum() + r.sum()).backward()
     ref = F.fused_trunk_bwd_reference(flat, x, 2 * s.detach(), torch.ones_like(r), meta)
     assert max(_grad_rel_errs([t.grad for t in w], ref)) <= TRUNK_GRAD_RTOL
+
+
+def _variant_inputs(n, seed, posenc, sh_dim, n_rgb):
+    """Raw points (posenc) or encoded x, a basis (SH decode) and cotangents."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    x = t(rng.uniform(-1.5, 1.5, (n, 3)) if posenc else rng.normal(size=(n, 63)))
+    basis = t(rng.normal(size=(n, sh_dim))) if sh_dim else None
+    gs = t(rng.normal(size=(n, 1)))
+    gr = t(rng.normal(size=(n, n_rgb // sh_dim if sh_dim else n_rgb)))
+    return x, basis, gs, gr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("posenc,sh_dim", [((0, 10), 0), (None, 16), ((0, 10), 16)])
+@pytest.mark.parametrize("n", [4096, 10000])
+def test_fused_trunk_variants_match_reference(posenc, sh_dim, n):
+    """The in-kernel posenc, SH decode and both (the training configuration)
+    against the plain versions, with bitwise-equal backward reruns."""
+    _need_cuda()
+    flat, meta = _trunk(8, 256, 48, seed=n, posenc=posenc, sh_dim=sh_dim)
+    x, basis, gs, gr = _variant_inputs(n, n + 1, posenc, sh_dim, 48)
+    counts = (F.fwd_launches, F.bwd_launches, F.posenc_launches, F.sh_launches)
+    s, r = F.fused_trunk(flat, x, meta, basis)
+    grads = F.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+    torch.cuda.synchronize()
+    assert (F.fwd_launches, F.bwd_launches, F.posenc_launches, F.sh_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2 * bool(posenc), counts[3] + 2 * bool(sh_dim))
+    rs, rr = F.fused_trunk_reference(flat, x, meta, basis)
+    assert r.shape == rr.shape == (n, 3 if sh_dim else 48)
+    assert float((s - rs).abs().max()) <= TRUNK_FWD_ATOL
+    assert float((r - rr).abs().max()) <= TRUNK_FWD_ATOL
+    ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis)
+    assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    again = F.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
+
+
+@pytest.mark.gpu
+def test_fused_trunk_autograd_with_basis_on_cuda():
+    """FusedTrunkFn with both variants: the basis is saved for the backward
+    and gets no gradient, nor do the raw points."""
+    _need_cuda()
+    flat, meta = _trunk(6, 64, 12, seed=6, posenc=(0, 10), sh_dim=4)
+    x, basis, _, _ = _variant_inputs(1500, 7, (0, 10), 4, 12)
+    basis.requires_grad_()
+    w = [t.clone().requires_grad_() for t in flat]
+    s, r = F.FusedTrunkFn.apply(meta, x, basis, *w)
+    assert r.shape == (1500, 3)
+    (s.square().sum() + r.sum()).backward()
+    ref = F.fused_trunk_bwd_reference(flat, x, 2 * s.detach(), torch.ones_like(r), meta,
+                                      basis.detach())
+    assert max(_grad_rel_errs([t.grad for t in w], ref)) <= TRUNK_GRAD_RTOL
+    assert basis.grad is None
 
 
 @pytest.mark.gpu
@@ -152,9 +206,15 @@ def test_fused_trunk_rejects_bad_inputs():
         F.fused_trunk([t.half() for t in flat], x, meta)
     with pytest.raises(ValueError):
         F.fused_trunk(flat, x.cpu(), meta)
-    for bad in ({"posenc": (0, 10)}, {"sh_dim": 16}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            F.fused_trunk(flat, x, dict(meta, **bad))
+    # The variants' inputs: raw f32 [N, 3] points with min_deg >= 0, an f32
+    # [N, sh_dim] basis.
+    pts = torch.rand(100, 3, device="cuda")
+    with pytest.raises(ValueError):
+        F.fused_trunk(flat, pts, dict(meta, posenc=(-1, 9)))
+    with pytest.raises(ValueError):
+        F.fused_trunk(flat, x, dict(meta, sh_dim=4), torch.ones(100, 3, device="cuda"))
+    with pytest.raises(TypeError):
+        F.fused_trunk(flat, x, dict(meta, sh_dim=4), torch.ones(100, 4, device="cuda").double())
     # A layout the kernels cannot take (width over 256): the C side refuses it.
     wide, wide_meta = _trunk(2, 320, 12, seed=5)
     g = torch.ones(100, 13, device="cuda")

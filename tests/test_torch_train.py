@@ -282,6 +282,41 @@ def test_loss_and_grads_match_jax_loss_fn(use_pallas, num_fine, monkeypatch):
     match those gradients and the stats. The sparsity points are JAX's own
     key_2 draw (fold_in(rng, step) -> split(., 3)[2]); the fine level runs
     at JAX's fine depths (_fine_depths)."""
+    _check_loss_and_grads(use_pallas, num_fine, monkeypatch)
+
+
+@pytest.mark.parametrize("switches", [("PN_POSENC_IN_KERNEL",), ("PN_SH_IN_KERNEL",),
+                                      ("PN_POSENC_IN_KERNEL", "PN_SH_IN_KERNEL")])
+def test_loss_and_grads_match_jax_with_kernel_variants(switches, monkeypatch):
+    """The same training step with the fused kernels' in-kernel posenc and/or
+    SH decode switched on in both packages (the training configuration is
+    both): the model's dispatch sends raw points and a per-ray basis into
+    the kernels, skips the separate decode, and the sparsity points go
+    through eval_points_raw's in-kernel posenc. Measured against JAX: stats
+    within the default fused path's bounds, gradients 8.4e-4 max relative."""
+    from plenoctree_tpu_torch.kernels import fused_mlp
+
+    for var in switches:
+        monkeypatch.setenv(var, "1")
+    metas = []
+    plain = fused_mlp.fused_trunk_reference
+
+    def spy(flat_w, x, meta, basis=None):
+        metas.append((meta, tuple(x.shape), basis is not None))
+        return plain(flat_w, x, meta, basis)
+
+    monkeypatch.setattr(fused_mlp, "fused_trunk_reference", spy)
+    _check_loss_and_grads(True, 8, monkeypatch)
+    # coarse, fine and the sparsity points went through the kernels' path
+    assert len(metas) == 3
+    for meta, x_shape, has_basis in metas:
+        assert bool(meta["posenc"]) == ("PN_POSENC_IN_KERNEL" in switches)
+        assert x_shape[1] == (3 if meta["posenc"] else 63)
+        assert has_basis == bool(meta["sh_dim"])
+    assert sum(h for _, _, h in metas) == (2 if "PN_SH_IN_KERNEL" in switches else 0)
+
+
+def _check_loss_and_grads(use_pallas, num_fine, monkeypatch):
     dtype = "bfloat16" if use_pallas else "float32"
     jcfg, jmodel, tcfg, tmodel = _models(dtype, use_pallas, num_fine_samples=num_fine)
     tree = _tree(14)
