@@ -32,6 +32,18 @@ from plenoctree_tpu_torch.ops.sh import sh_basis
 
 VARIANTS = {"default": (None, 0), "posenc": ((0, 10), 0), "sh": (None, 16),
             "posenc+sh": ((0, 10), 16)}
+# The gradient check at small row counts (the 10,000-row sparsity pass).
+# There a fixed bound measures rounding noise: the plain f32 version itself
+# lies 1.1-2.8e-2 from the f64 evaluation over six seeds (PERF.md),
+# against chip_smoke.py's TRUNK_GRAD_RTOL of 2e-2. So the kernel's distance
+# from the f64 evaluation may be at most this many times the plain
+# version's distance on the same draws: both round at the same bf16
+# points, so a sound kernel is as close to the exact algorithm as the plain
+# version, seed by seed either may be closer, and over 12 seed x variant
+# pairs on the H100 the largest kernel/plain ratio was 1.73 (the SH decode,
+# seed 4: 1.89e-2 against 1.09e-2). A dropped or 5%-scaled gradient array
+# moves the kernel's distance far past it at small widths.
+TRUNK_SMALL_ROW_FACTOR = 2.0
 
 
 def bwd_f64(flat_w, x, g_sigma, g_rgb, meta, basis=None):
@@ -78,6 +90,15 @@ def rel_errs(got, want):
     """Per-array max |got - want| / max |want| (float64)."""
     return [float((a.double() - b.double()).abs().max() / b.double().abs().max())
             for a, b in zip(got, want)]
+
+
+def within_noise_floor(got, plain, exact, factor=TRUNK_SMALL_ROW_FACTOR):
+    """The small-row gradient check: (distance of `got` from the f64
+    evaluation `exact`, the plain version's distance, whether the first is
+    at most `factor` times the second); distances are the max over arrays
+    of rel_errs."""
+    d_got, d_plain = max(rel_errs(got, exact)), max(rel_errs(plain, exact))
+    return d_got, d_plain, d_got <= factor * d_plain
 
 
 def inputs(n, seed, pe, sh, device):

@@ -2,7 +2,7 @@
 
 Port of plenoctree_tpu/cli/evaluate.py: render every test view from the
 tree, print PSNR/SSIM/LPIPS, write `<input>.results.json`, optionally write
-images or a video. As in the JAX CLI, the views go through the exact march
+images (PNG, with the port's own writer) or a video (needs imageio). As in the JAX CLI, the views go through the exact march
 (`VolumeRenderer`) unless `--fast_eval` asks for the tile renderer, the
 serving path. LPIPS is NaN unless VGG-LPIPS weights are found
 ($LPIPS_WEIGHTS_NPZ; see ops/lpips.py).
@@ -22,6 +22,7 @@ from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.octree import N3Tree
 from plenoctree_tpu_torch.octree.evaluate import eval_octree
 from plenoctree_tpu_torch.utils import config as config_lib
+from plenoctree_tpu_torch.utils.png import write_png
 
 
 def build_parser():
@@ -59,7 +60,13 @@ def main(argv=None):
         json.dump({"psnr": avg_psnr, "ssim": avg_ssim, "lpips": avg_lpips}, f)
 
     if args.write_vid is not None and len(frames):
-        import imageio
+        try:
+            import imageio
+        except ImportError as e:
+            raise RuntimeError(
+                "--write_vid needs imageio, which cannot be imported here; "
+                "use --write_images to write the frames as PNG files"
+            ) from e
 
         print("Writing to", args.write_vid)
         try:
@@ -67,12 +74,10 @@ def main(argv=None):
         except Exception as e:  # no ffmpeg backend installed
             print(f"  mp4 write unavailable ({e}); use --write_images instead")
     if args.write_images is not None and len(frames):
-        import imageio
-
         print("Writing to", args.write_images)
         os.makedirs(args.write_images, exist_ok=True)
         for idx, frame in enumerate(frames):
-            imageio.imwrite(os.path.join(args.write_images, f"{idx:03d}.png"), frame)
+            write_png(os.path.join(args.write_images, f"{idx:03d}.png"), frame)
     return avg_psnr, avg_ssim, avg_lpips
 
 

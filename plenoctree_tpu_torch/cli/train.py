@@ -17,9 +17,7 @@ Usage:
 import argparse
 import gc
 import os
-import struct
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -32,6 +30,7 @@ from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
 from plenoctree_tpu_torch.utils import config as config_lib
 from plenoctree_tpu_torch.utils.lr import schedule_from_config
 from plenoctree_tpu_torch.utils.metrics_writer import MetricsWriter
+from plenoctree_tpu_torch.utils.png import write_png
 
 
 def build_parser():
@@ -46,23 +45,6 @@ def build_parser():
     )
     config_lib.add_flags(parser)
     return parser
-
-
-def save_png(img, path):
-    """[H, W, 3] floats in [0, 1] -> an 8-bit RGB PNG (stdlib zlib only)."""
-    a = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    h, w = a.shape[:2]
-    raw = b"".join(b"\x00" + a[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw)))
-        f.write(chunk(b"IEND", b""))
 
 
 SEED = 20200823  # the JAX CLI's PRNGKey seed; init and per-step sampling
@@ -165,7 +147,8 @@ def main(argv=None):
                 vis = np.hstack([
                     gt, pred_color, np.repeat(pred_disp, 3, -1), np.repeat(pred_acc, 3, -1),
                 ])
-                save_png(vis, os.path.join(render_dir, "{:010}.png".format(step)))
+                vis = (np.clip(vis, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                write_png(os.path.join(render_dir, "{:010}.png".format(step)), vis)
                 t_loop_start += time.time() - t_eval_start
         gc.enable()
 

@@ -1,5 +1,6 @@
 // Tile compositing for PlenOctree serving and its backward for the tile
-// optimizer: one block per tile of pixels (16x16 by default, up to 32x32).
+// optimizer: one block per tile of pixels (16x16 by default); a tile of more
+// than 256 rays (up to 32x32) runs as four blocks, one per quad group.
 //
 // tile_composite_kernel replaces plenoctree_tpu/octree/tile_render.py::
 // _tile_kernel (the Pallas TPU kernel launched from TileRenderer._get_p2);
@@ -7,37 +8,46 @@
 // _tile_bwd_kernel (see the comment above it). Same inputs (the phase-1 piece
 // list of each tile, per-ray origin/inverse-direction/aux/basis, the blocked
 // soa [n_blk, fields, quantum]) and the same per-hit arithmetic; the TPU's
-// DMA ring, semaphores, [R,R] precedence matmul and ones-column reductions
-// are not carried over.
+// DMA ring, semaphores and [R,R] precedence matmul are not carried over.
 //
 // What bounds it on an H100: (1) scattered soa reads: every chunk is a set
-// of quantum-row blocks picked by phase 1 from a multi-GB table, so each
-// block costs a DRAM round trip that the block cannot hide by itself; (2)
-// per-ray serial work within a chunk: each ray walks the chunk's rows in
-// front-to-back order with a running optical depth, so a chunk is
-// runrows sequential steps per thread.
-// What the design does about it: each piece is one contiguous
-// fields x quantum block (about 28 KB per chunk for SH16 at runrows 128),
-// staged into shared memory with coalesced 16-byte loads by all 256
-// threads; many tiles are resident per SM, so one tile's loads overlap
-// another's walk. The walk skips rows with zero sigma with a branch that is
-// uniform over the block (every thread visits the same row), and decodes
-// colour only for rays that hit a row while still alive. Quad-group masks
-// from phase 1 and the saturation tests skip whole groups and tiles.
-//
-// Precedence: within a chunk, rows are sorted by (key, lane) with key =
-// 0.5 (lo + hi) . mdir (bitonic sort in shared memory). That is exactly the
-// strict total order `before = key_i < key_j | (key_i == key_j & i < j)` of
-// the TPU kernel; keys are compared in f32.
+// of quantum-row blocks picked by phase 1 from a multi-GB table, each a DRAM
+// round trip; (2) per-ray serial work within a chunk: each ray walks the
+// chunk's rows in front-to-back order with a running optical depth.
+// What the design does about it, in both kernels: a block is up to 8
+// consumer warps (one thread per ray) and one producer warp.
+// - Staging: each piece is one contiguous fields x quantum block (28 KB per
+//   chunk for SH16 at runrows 128), copied by the producer with
+//   cp.async.bulk into one of two shared buffers and completed on that
+//   buffer's mbarrier. The next chunk's copy is in flight while the
+//   consumers walk the current one.
+// - A compacted, sorted live list, built by the producer warp one chunk
+//   ahead: the staged rows that are live (inside their run's [lo, hi))
+//   with sigma > 0, compacted by ballot, sorted by (key, row) with key =
+//   0.5 (lo + hi) . mdir as one u64 per row in registers (a shuffle
+//   bitonic, up to 8 keys per lane), each row's box and sigma written as
+//   two float4. The walk reads two vector loads per row and never meets a
+//   dead row. (key, row) is exactly the strict total order `before = key_i
+//   < key_j | (key_i == key_j & i < j)` of the TPU kernels (keys compared
+//   as f32: -0 is taken as +0).
+// - Hand-offs: in the forward, named barriers per buffer (READY: the list
+//   is built; DONE: the consumers are done with it), the saturation test
+//   one OR of each warp's group bits before READY; in the backward, whose
+//   warps never need each other's state, mbarriers (FULL, EMPTY), so a
+//   consumer warp can run a chunk ahead of the slowest one.
+// Occupancy: the forward keeps two blocks of 288 threads per SM (two 28 KB
+//   buffers, two live lists and the basis are 81 KB a block, 89
+//   registers); the backward one (two chunk gradients and the per-warp
+//   cotangent tiles besides: ~166 KB).
 //
 // Numerics: f32 throughout (the TPU's use_bf16 operand rounding is not
 // reproduced). Built with --fmad=false, so nothing is contracted behind the
-// source's back: the slab test is an explicit fmaf (box*invd - o*invd with
-// one rounding, as XLA computes it), everything else rounds as written,
-// like the plain PyTorch version.
-// Sums (optical depth in front, colour, opacity) are taken sequentially in
-// front-to-back order rather than by a matmul: results agree with the plain
-// version to f32 summation-order rounding.
+// source's back: the forward's slab test is an explicit fmaf (box*invd -
+// o*invd with one rounding, as XLA computes it), everything else rounds as
+// written, like the plain PyTorch version. The forward's sums (optical depth
+// in front, colour, opacity) are taken sequentially in front-to-back order
+// rather than by a matmul: results agree with the plain version to f32
+// summation-order rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,8 +55,12 @@
 namespace {
 
 constexpr int kMaxChannels = 7;  // rgb(nc) + transmittance fit in 8 outputs
+constexpr int kThreads = 256;    // threads per block (rays of a tile or of a quad group)
+constexpr int kMaxRows = 256;    // runrows: up to 8 sort keys per lane
+constexpr int kSlots = 8;        // backward: live rows per tensor-core slice (mma N)
 
-struct Params {
+// Both kernels' view of a launch: per-tile inputs in the JAX p2_args layout.
+struct Tiles {
   const int* meta;        // [T, 1, 4]: n_pieces
   const int* piece_c0;    // [T, 1, ccap]: quantum-aligned row start
   const int* piece_lo;    // [T, 1, ccap]: owning run's live rows [lo, hi)
@@ -58,134 +72,462 @@ struct Params {
   const float* mdir;      // [T, 1, 4]
   const float* basis;     // [T, rays, basis_dim]
   const float* soa;       // [n_blk, fields, quantum]
-  float* out;             // [T, rays, 8]
-  int ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum;
+  int rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum;
+  int sub;                // blocks per tile: 1, or 4 (one per quad group)
+  int qshift;             // log2(quantum)
+};
+
+struct Params {
+  Tiles t;
+  float* out;  // [T, rays, 8]
   float step_eps, stop_thresh, od_cap;
   int sigmoid;  // 1: SH/SG (sigmoid of the decode), 0: RGBA (raw)
 };
 
-// Loads piece descriptors (c0, lo, hi, mask) of chunk `chunk` into s_piece
-// [4, G] and stages its soa rows into buf [fields, R]: piece g is the
-// contiguous block soa[c0/quantum], copied with coalesced 16-byte loads by
-// the whole block. Slots past n_pieces get zero rows and empty runs.
-__device__ __forceinline__ void stage_chunk(const int* c0_t, const int* lo_t, const int* hi_t, const int* mask_t,
-                            int n_pieces, int chunk, int G, int quantum, int fields, int R,
-                            const float* soa, float* buf, int* s_piece) {
-  const int tid = threadIdx.x;
-  if (tid < G) {
-    const int pi = chunk * G + tid;
-    const bool valid = pi < n_pieces;
-    s_piece[tid] = valid ? c0_t[pi] : 0;
-    s_piece[G + tid] = valid ? lo_t[pi] : 0;
-    s_piece[2 * G + tid] = valid ? hi_t[pi] : 0;
-    s_piece[3 * G + tid] = valid ? mask_t[pi] : 0;
+struct BwdParams {
+  Tiles t;
+  const float* out;  // [T, rays, 8]: the forward's output (rgb(nc), transmittance)
+  const float* g;    // [T, rays, 8]: its cotangent
+  float* gsoa;       // [n_blk, fields, quantum]: zero on entry, gradients added
+  float step_eps;
+  int sigmoid;
+};
+
+__device__ unsigned long long g_bwd_counts[2];  // float4 atomics, non-zero floats they carry
+
+// ---- Hopper primitives: mbarriers, bulk copies, tensor-core mma ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait for the phase of the given parity to complete. A wait that has not
+// ended after ~10 s of clock traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(a), "r"(parity)
+      : "memory");
+  if (ok) return;
+  const long long t0 = clock64();
+  while (!ok) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!ok && clock64() - t0 > 20000000000LL) __trap();
   }
-  __syncthreads();
-  const int q4 = quantum / 4;
-  const float4* soa4 = reinterpret_cast<const float4*>(soa);
-  const int per_piece = fields * q4;
-  for (int i = tid; i < G * per_piece; i += blockDim.x) {
-    const int g = i / per_piece;
-    const int rem = i - g * per_piece;
-    const int f = rem / q4;
-    const int l4 = rem - f * q4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (chunk * G + g < n_pieces) {
-      const size_t blk = s_piece[g] / quantum;
-      v = soa4[(blk * fields + f) * q4 + l4];
-    }
-    reinterpret_cast<float4*>(buf + f * R + g * quantum)[l4] = v;
-  }
-  __syncthreads();
+}
+// Bulk copy global -> shared, completing `bytes` of the barrier's transaction.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// d += a . b on one m16n8k8 TF32 tensor-core tile (f32 accumulation).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Per-row lane meta of the staged chunk, then its precedence order: dead
-// lanes (outside the owning run, or past the piece count) get sigma 0; rows
-// are sorted by (key, lane) ascending with key = 0.5 (lo + hi) . mdir
-// (bitonic sort in shared memory), which is exactly the strict total order
-// `before = key_i < key_j | (key_i == key_j & i < j)` of the TPU kernels.
-__device__ __forceinline__ void sort_chunk(const float* buf, const int* s_piece, int G, int quantum, int R,
-                           int sigma_row, float m0, float m1, float m2, float* s_key,
-                           float* s_sigma, int* s_idx) {
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  for (int r = tid; r < R; r += nthreads) {
-    const int g = r / quantum;
-    const int rowid = s_piece[g] + (r - g * quantum);
-    const bool live = rowid >= s_piece[G + g] && rowid < s_piece[2 * G + g];
-    s_sigma[r] = live ? fmaxf(buf[sigma_row * R + r], 0.f) : 0.f;
-    s_key[r] = 0.5f * ((buf[0 * R + r] + buf[3 * R + r]) * m0 +
-                       (buf[1 * R + r] + buf[4 * R + r]) * m1 +
-                       (buf[2 * R + r] + buf[5 * R + r]) * m2);
-    s_idx[r] = r;
+// ---- Shared staging, the live list and the producer warp (both kernels) ----
+
+// The forward's named barriers (0 is __syncthreads): READY + b, the
+// producer has built the live list in buffer b; DONE + b, the consumers
+// have walked buffer b.
+constexpr int kReady = 1, kDone = 3;
+
+__device__ __forceinline__ void nbar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void nbar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// One block's shared state for the chunk pipeline; buffer b of a pair is
+// at base + b * stride.
+struct Stage {
+  float* buf;          // [2][G][fields][quantum]: the staged pieces
+  size_t buf_stride;   // floats per staging buffer
+  int* piece;          // [2][4][G]: c0, lo, hi, mask of each staged chunk
+  uint64_t* bar;       // [2]: one mbarrier per staging buffer
+  float4* live;        // [2][2 * runrows]: (lo box, sigma), (hi box, row) per live row
+  int* list;           // [2][2]: live rows and chunk mask of each list
+  int* ring;           // [3]: per-chunk flags (k % 3): saturation bits, or any hit
+  int* stop;           // the chunk at which the consumers stopped (forward), else INT_MAX
+  int* blk;            // [4][G]: soa block of each piece of chunk k (k % 4)
+};
+
+// Producer lane 0: stage chunk `chunk` of the tile into buffer `b`: its piece
+// descriptors (zero past n_pieces: no live rows), and one bulk copy per
+// piece of its contiguous soa block.
+__device__ __forceinline__ void issue_chunk(const Tiles& t, const Stage& s, int b, int chunk,
+                                            size_t tile, int n_pieces, int G) {
+  const size_t base = tile * t.ccap;
+  const uint32_t bytes = (uint32_t)t.fields * t.quantum * 4;
+  int* pc = s.piece + b * 4 * G;
+  float* buf = s.buf + b * s.buf_stride;
+  int valid = 0;
+  for (int g = 0; g < G; ++g) valid += chunk * G + g < n_pieces;
+  mbar_expect_tx(&s.bar[b], bytes * valid);
+  for (int g = 0; g < G; ++g) {
+    const int pi = chunk * G + g;
+    const bool ok = pi < n_pieces;
+    const int c0 = ok ? t.piece_c0[base + pi] : 0;
+    pc[g] = c0;
+    pc[G + g] = ok ? t.piece_lo[base + pi] : 0;
+    pc[2 * G + g] = ok ? t.piece_hi[base + pi] : 0;
+    pc[3 * G + g] = ok ? t.piece_mask[base + pi] : 0;
+    if (ok) {
+      const size_t blk = (size_t)(c0 >> t.qshift);
+      bulk_g2s(buf + (size_t)g * t.fields * t.quantum, t.soa + blk * t.fields * t.quantum, bytes,
+               &s.bar[b]);
+    }
   }
-  __syncthreads();
-  for (int size = 2; size <= R; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < R; i += nthreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const float ki = s_key[i], kj = s_key[j];
-          const int ii = s_idx[i], ij = s_idx[j];
-          const bool i_after_j = (ki > kj) || (ki == kj && ii > ij);
-          if (i_after_j == ((i & size) == 0)) {
-            s_key[i] = kj;
-            s_key[j] = ki;
-            s_idx[i] = ij;
-            s_idx[j] = ii;
+}
+
+// f32 key -> u32 in the same order (-0 taken as +0, as f32 compares it).
+__device__ __forceinline__ uint32_t sortable(float key) {
+  const uint32_t u = __float_as_uint(key + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// One warp: sort n <= 32 * KPL u64 values ascending with a bitonic network,
+// element e = lane * KPL + j in v[j] (strides below KPL compare within a
+// lane's registers, the others across lanes by shuffle), then write the
+// live list over the scratch the values came from.
+template <int KPL>
+__device__ __forceinline__ void sort_and_write(const Tiles& t, const float* buf, int n,
+                                               float4* live) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long* scratch = reinterpret_cast<const unsigned long long*>(live);
+  unsigned long long v[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int e = lane * KPL + j;
+    v[j] = e < n ? scratch[e] : ~0ull;
+  }
+  __syncwarp();  // every value loaded before the list overwrites the scratch
+  constexpr int N = 32 * KPL;
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1) {
+#pragma unroll
+    for (int s = k >> 1; s > 0; s >>= 1) {
+      if (s < KPL) {
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          if ((j & s) == 0) {
+            const bool asc = (((lane * KPL + j) & k) == 0);
+            const unsigned long long a = v[j], b = v[j | s];
+            const bool swap = (a > b) == asc;
+            v[j] = swap ? b : a;
+            v[j | s] = swap ? a : b;
           }
         }
+      } else {
+        const int ls = s / KPL;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const unsigned long long o = __shfl_xor_sync(0xffffffffu, v[j], ls);
+          const bool keep_min = ((lane & ls) == 0) == (((lane * KPL + j) & k) == 0);
+          v[j] = keep_min ? (o < v[j] ? o : v[j]) : (o > v[j] ? o : v[j]);
+        }
       }
-      __syncthreads();
+    }
+  }
+  const int q = t.quantum;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int e = lane * KPL + j;
+    if (e < n) {
+      const int r = (int)(v[j] & 0xffffffffu);
+      const float* row = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1));
+      live[2 * e] = make_float4(row[0], row[q], row[2 * q], row[t.sigma_row * q]);
+      live[2 * e + 1] = make_float4(row[3 * q], row[4 * q], row[5 * q], __int_as_float(r));
     }
   }
 }
 
-// Instantiated twice (see pn_tile_composite): for tiles of up to 256 rays
-// (16x16) with at most 64 registers, so 4 blocks fit on an SM (unbounded,
-// ptxas takes 72 registers and 3 blocks fit; chip_smoke.py's serving frame
-// read 15.41 ms with the bound and 18.12 ms without, in separate runs on an
-// H100 80GB HBM3 at 700 W), and for tiles of up to 1024 rays (32x32), where
-// the same 64-register cap is what lets 1024 threads launch at all.
-template <int kMaxThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) tile_composite_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  const int R = p.runrows;
-  const int rays = blockDim.x;
+// The producer warp: the staged chunk in buffer b -> its live rows (inside
+// their run, sigma > 0) in (key, row) order into list b, with their count
+// and the chunk's quad-group mask.
+__device__ __forceinline__ void build_live(const Tiles& t, const Stage& s, int b, float m0,
+                                           float m1, float m2) {
+  const int lane = threadIdx.x & 31;
+  const int R = t.runrows, q = t.quantum, G = R / q;
+  const float* buf = s.buf + b * s.buf_stride;
+  const int* pc = s.piece + b * 4 * G;
+  float4* live = s.live + b * 2 * R;
+  unsigned long long* scratch = reinterpret_cast<unsigned long long*>(live);
+  int n = 0;
+  for (int i = 0; i < R; i += 32) {
+    const int r = i + lane;
+    bool ok = false;
+    unsigned long long kv = 0;
+    if (r < R) {
+      const int g = r >> t.qshift, l = r & (q - 1);
+      const float* row = buf + (size_t)g * t.fields * q + l;
+      const int rowid = pc[g] + l;
+      ok = rowid >= pc[G + g] && rowid < pc[2 * G + g] && row[t.sigma_row * q] > 0.f;
+      if (ok) {
+        const float key = 0.5f * ((row[0] + row[3 * q]) * m0 + (row[q] + row[4 * q]) * m1 +
+                                  (row[2 * q] + row[5 * q]) * m2);
+        kv = ((unsigned long long)sortable(key) << 32) | (unsigned)r;
+      }
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, ok);
+    if (ok) scratch[n + __popc(bal & ((1u << lane) - 1))] = kv;
+    n += __popc(bal);
+  }
+  __syncwarp();
+  if (n <= 32) sort_and_write<1>(t, buf, n, live);
+  else if (n <= 64) sort_and_write<2>(t, buf, n, live);
+  else if (n <= 128) sort_and_write<4>(t, buf, n, live);
+  else sort_and_write<8>(t, buf, n, live);
+  if (lane == 0) {
+    int cmask = 0;
+    for (int g = 0; g < G; ++g) cmask |= pc[3 * G + g];
+    s.list[2 * b] = n;
+    s.list[2 * b + 1] = cmask;
+  }
+}
+
+// The forward's producer warp, one chunk ahead of the consumers: stage
+// chunk k into buffer k & 1 once the consumers are done with chunk k - 2,
+// wait for its copy, build its live list, hand it over (READY). The
+// consumers (forward) may stop at a chunk: they record it before their DONE
+// of that chunk and take the next chunk's READY, so every barrier phase
+// that one side opens the other completes.
+__device__ void produce(const Tiles& t, const Stage& s, size_t tile, int n_pieces, int n_chunks,
+                        float m0, float m1, float m2, int nb) {
+  const int lane = threadIdx.x & 31;
+  const int G = t.runrows / t.quantum;
+  if (lane == 0) {
+    for (int c = 0; c < 2 && c < n_chunks; ++c) issue_chunk(t, s, c, c, tile, n_pieces, G);
+  }
+  __syncwarp();
+  for (int k = 0; k < n_chunks; ++k) {
+    const int b = k & 1;
+    if (k >= 2) {
+      nbar_sync(kDone + b, nb);
+      if (*(volatile int*)s.stop <= k - 2) return;
+      if (lane == 0) issue_chunk(t, s, b, k, tile, n_pieces, G);
+      __syncwarp();
+    }
+    mbar_wait(&s.bar[b], (k >> 1) & 1);
+    build_live(t, s, b, m0, m1, m2);
+    const int* pc = s.piece + b * 4 * G;
+    for (int g = lane; g < G; g += 32) s.blk[(k & 3) * G + g] = pc[g] >> t.qshift;
+    __syncwarp();
+    nbar_arrive(kReady + b, nb);
+  }
+  for (int j = n_chunks > 2 ? n_chunks - 2 : 0; j < n_chunks; ++j) {
+    if (*(volatile int*)s.stop <= j - 1) return;
+    nbar_sync(kDone + (j & 1), nb);
+  }
+}
+
+// The backward's producer warp. Its consumer warps do not wait for each
+// other: each takes list k when FULL[b] completes and arrives on EMPTY[b]
+// when it has walked chunk k and added its slices into chunk gradient b
+// (one per chunk in flight: a warp can be one chunk ahead of the slowest).
+// Once every consumer has arrived, the producer stages chunk k + 2 into
+// the freed buffer and, while that copy flies, adds chunk k's gradient
+// into the soa (float4 atomics for non-zero quads) and clears it.
+__device__ void produce_bwd(const Tiles& t, const Stage& s, uint64_t* full, uint64_t* empty,
+                            float* s_gacc, size_t gacc_stride, float* gsoa, size_t tile,
+                            int n_pieces, int n_chunks, float m0, float m1, float m2) {
+  const int lane = threadIdx.x & 31;
+  const int G = t.runrows / t.quantum;
+  const int q = t.quantum, q4 = q / 4, SR = t.runrows + 4;
+  const int nvals = t.n_channels * t.basis_dim + 1;
+  const int per_piece = nvals * q4;
+  unsigned n_quads = 0, n_nonzero = 0;
+  auto flush = [&](int j) {
+    const int b = j & 1;
+    mbar_wait(&empty[b], (j >> 1) & 1);
+    if (j + 2 < n_chunks) {
+      if (lane == 0) issue_chunk(t, s, b, j + 2, tile, n_pieces, G);
+      __syncwarp();
+    }
+    if (!s.ring[b]) return;  // no warp hit a row of chunk j
+    float* gacc = s_gacc + b * gacc_stride;
+    const int* blk = s.blk + (j & 3) * G;
+    for (int i = lane; i < G * per_piece; i += 32) {
+      const int g = i / per_piece;
+      const int rem = i - g * per_piece;
+      const int row = rem / q4;
+      const int l4 = rem - row * q4;
+      float4* src = reinterpret_cast<float4*>(gacc + row * SR + g * q + 4 * l4);
+      const float4 v = *src;
+      const int nz = (v.x != 0.f) + (v.y != 0.f) + (v.z != 0.f) + (v.w != 0.f);
+      if (nz && j * G + g < n_pieces) {
+        atomicAdd(reinterpret_cast<float4*>(gsoa + (((size_t)blk[g] * t.fields + 6 + row) * q + 4 * l4)), v);
+        ++n_quads;
+        n_nonzero += nz;
+      }
+      if (nz) *src = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncwarp();
+    if (lane == 0) s.ring[b] = 0;
+  };
+  if (lane == 0) {
+    for (int c = 0; c < 2 && c < n_chunks; ++c) issue_chunk(t, s, c, c, tile, n_pieces, G);
+  }
+  __syncwarp();
+  for (int k = 0; k < n_chunks; ++k) {
+    const int b = k & 1;
+    if (k >= 2) flush(k - 2);
+    mbar_wait(&s.bar[b], (k >> 1) & 1);
+    build_live(t, s, b, m0, m1, m2);
+    const int* pc = s.piece + b * 4 * G;
+    for (int g = lane; g < G; g += 32) s.blk[(k & 3) * G + g] = pc[g] >> t.qshift;
+    __syncwarp();
+    mbar_arrive(&full[b]);
+  }
+  for (int j = n_chunks > 2 ? n_chunks - 2 : 0; j < n_chunks; ++j) flush(j);
+  n_quads = __reduce_add_sync(0xffffffffu, n_quads);
+  n_nonzero = __reduce_add_sync(0xffffffffu, n_nonzero);
+  if (lane == 0 && n_quads) {
+    atomicAdd(&g_bwd_counts[0], (unsigned long long)n_quads);
+    atomicAdd(&g_bwd_counts[1], (unsigned long long)n_nonzero);
+  }
+}
+
+// Carves the pipeline's shared memory; `off` returns the first free byte.
+__device__ __forceinline__ Stage carve_stage(unsigned char* smem, const Tiles& t, size_t& off) {
+  Stage s;
+  const int G = t.runrows / t.quantum;
+  s.buf_stride = (size_t)t.fields * t.runrows;
+  s.buf = reinterpret_cast<float*>(smem);
+  off = 2 * s.buf_stride * 4;
+  s.live = reinterpret_cast<float4*>(smem + off);
+  off += (size_t)2 * t.runrows * 32;
+  s.bar = reinterpret_cast<uint64_t*>(smem + off);
+  off += 16;
+  s.piece = reinterpret_cast<int*>(smem + off);
+  off += (size_t)8 * G * 4;
+  s.blk = reinterpret_cast<int*>(smem + off);
+  off += (size_t)4 * G * 4;
+  s.list = reinterpret_cast<int*>(smem + off);
+  s.ring = s.list + 4;
+  s.stop = s.ring + 3;
+  off += 8 * 4;
+  off = (off + 15) & ~(size_t)15;
+  return s;
+}
+
+__host__ __device__ inline size_t stage_bytes(int fields, int runrows, int quantum) {
+  const size_t G = runrows / quantum;
+  return (((size_t)2 * fields * runrows * 4 + (size_t)2 * runrows * 32 + 16 + 48 * G + 32) + 15) &
+         ~(size_t)15;
+}
+
+// Per-thread ray of a block: block b is quad group (b % sub) of tile b / sub;
+// threads past the tile's rays (and the producer warp) are inactive.
+struct Ray {
+  size_t tile, ray;  // tile index, global ray index
+  int grp;           // quad group 0..3
+  bool active;
+};
+__device__ __forceinline__ Ray ray_of(const Tiles& t) {
+  Ray r;
+  r.tile = blockIdx.x / t.sub;
+  const int per = t.rays / t.sub;
+  const int rt = (int)(blockIdx.x % t.sub) * per + (int)threadIdx.x;  // ray within the tile
+  r.active = (int)threadIdx.x < per;
+  r.ray = r.tile * t.rays + (r.active ? rt : 0);
+  r.grp = r.active ? rt / (t.rays / 4) : 0;
+  return r;
+}
+
+// Setup shared by both kernels, by every thread: the mbarriers (one
+// thread), the per-chunk flags, then a block barrier.
+__device__ __forceinline__ void init_stage(const Stage& s) {
+  if (threadIdx.x == 0) {
+    mbar_init(&s.bar[0], 1);
+    mbar_init(&s.bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    s.ring[0] = s.ring[1] = s.ring[2] = 0;
+    *s.stop = 0x7fffffff;
+  }
+}
+
+// ---- The forward ----
+
+// One instantiation for every tile size: the consumer warps (a tile's or a
+// quad group's rays, up to 256) and the producer warp; two blocks per SM
+// (see the occupancy note at the top).
+__global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles& t = p.t;
   const int tid = threadIdx.x;
-  const int G = R / p.quantum;
-  const int bd = p.basis_dim;
-  const int nc = p.n_channels;
-  float* buf = reinterpret_cast<float*>(smem4);  // [fields, R]
-  float* s_basis = buf + p.fields * R;           // [bd, rays]
-  float* s_key = s_basis + bd * rays;            // [R]
-  float* s_sigma = s_key + R;                    // [R]
-  int* s_idx = reinterpret_cast<int*>(s_sigma + R);  // [R]
-  int* s_piece = s_idx + R;                      // [4, G]: c0, lo, hi, mask
+  const int nb = blockDim.x;       // consumers and the producer warp
+  const int ncons = nb - 32;       // consumer threads
+  const int bd = t.basis_dim;
+  const int nc = t.n_channels;
+  const int G = t.runrows / t.quantum;
+  size_t off;
+  const Stage s = carve_stage(smem, t, off);
+  float* s_basis = reinterpret_cast<float*>(smem + off);  // [bd, ncons]
 
-  const size_t tile = blockIdx.x;
-  const size_t ray = tile * rays + tid;
-  const int grp = tid / (rays / 4);
-  const int n_pieces = p.meta[tile * 4];
+  const Ray ry = ray_of(t);
+  const int n_pieces = t.meta[ry.tile * 4];
   const int n_chunks = (n_pieces + G - 1) / G;
-  const int* c0_t = p.piece_c0 + tile * p.ccap;
-  const int* lo_t = p.piece_lo + tile * p.ccap;
-  const int* hi_t = p.piece_hi + tile * p.ccap;
-  const int* mask_t = p.piece_mask + tile * p.ccap;
+  const float m0 = t.mdir[ry.tile * 4 + 0];
+  const float m1 = t.mdir[ry.tile * 4 + 1];
+  const float m2 = t.mdir[ry.tile * 4 + 2];
+  init_stage(s);
+  if (tid < ncons) {
+    for (int k = 0; k < bd; ++k) s_basis[k * ncons + tid] = ry.active ? t.basis[ry.ray * bd + k] : 0.f;
+  }
+  __syncthreads();
+  if (tid >= ncons) {
+    produce(t, s, ry.tile, n_pieces, n_chunks, m0, m1, m2, nb);
+    return;
+  }
 
-  const float ivx = p.invd[ray * 4 + 0];
-  const float ivy = p.invd[ray * 4 + 1];
-  const float ivz = p.invd[ray * 4 + 2];
-  const float oix = p.o[ray * 4 + 0] * ivx;
-  const float oiy = p.o[ray * 4 + 1] * ivy;
-  const float oiz = p.o[ray * 4 + 2] * ivz;
-  const float dscale = p.aux[ray * 4 + 0];
-  const float tmin = p.aux[ray * 4 + 1];
-  const float tmax = p.aux[ray * 4 + 2];
-  const float m0 = p.mdir[tile * 4 + 0];
-  const float m1 = p.mdir[tile * 4 + 1];
-  const float m2 = p.mdir[tile * 4 + 2];
-  for (int k = 0; k < bd; ++k) s_basis[k * rays + tid] = p.basis[ray * bd + k];
+  float ivx = 0.f, ivy = 0.f, ivz = 0.f, oix = 0.f, oiy = 0.f, oiz = 0.f;
+  float dscale = 0.f, tmin = 0.f, tmax = 0.f;
+  if (ry.active) {
+    ivx = t.invd[ry.ray * 4 + 0];
+    ivy = t.invd[ry.ray * 4 + 1];
+    ivz = t.invd[ry.ray * 4 + 2];
+    oix = t.o[ry.ray * 4 + 0] * ivx;
+    oiy = t.o[ry.ray * 4 + 1] * ivy;
+    oiz = t.o[ry.ray * 4 + 2] * ivz;
+    dscale = t.aux[ry.ray * 4 + 0];
+    tmin = t.aux[ry.ray * 4 + 1];
+    tmax = t.aux[ry.ray * 4 + 2];
+  }
 
   float cum = 0.f;
   float acc[kMaxChannels];
@@ -193,49 +535,57 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) tile_composite_kernel
   for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int b = chunk & 1;
     // Per-group saturation (a group whose every ray is past od_cap can gain
-    // nothing more); the syncs also fence the previous chunk's buffer use.
-    const bool unsat = cum <= p.od_cap;
-    int g_unsat = 0;
-    for (int g = 0; g < 4; ++g) g_unsat |= (__syncthreads_or(unsat && grp == g) != 0) << g;
-    if (g_unsat == 0) break;  // whole tile saturated: uniform exit
-
-    stage_chunk(c0_t, lo_t, hi_t, mask_t, n_pieces, chunk, G, p.quantum, p.fields, R, p.soa, buf,
-                s_piece);
-    sort_chunk(buf, s_piece, G, p.quantum, R, p.sigma_row, m0, m1, m2, s_key, s_sigma, s_idx);
-
-    int cmask = 0;
-    for (int g = 0; g < G; ++g) cmask |= s_piece[3 * G + g];
-    if (((cmask >> grp) & 1) && ((g_unsat >> grp) & 1)) {
+    // nothing more): each warp ORs its rays' group bits once, before READY.
+    const unsigned bits =
+        __reduce_or_sync(0xffffffffu, (ry.active && cum <= p.od_cap) ? 1u << ry.grp : 0u);
+    if ((tid & 31) == 0 && bits) atomicOr(&s.ring[chunk % 3], (int)bits);
+    nbar_sync(kReady + b, nb);
+    if (tid == 0) s.ring[(chunk + 2) % 3] = 0;  // read before this READY, next ORed after the next
+    const int g_unsat = s.ring[chunk % 3];
+    if (g_unsat == 0) {  // whole tile saturated: a uniform stop
+      if (tid == 0) *s.stop = chunk;
+      nbar_arrive(kDone + b, nb);
+      if (chunk + 1 < n_chunks) nbar_sync(kReady + (b ^ 1), nb);
+      break;
+    }
+    const int n_live = s.list[2 * b];
+    if (((s.list[2 * b + 1] >> ry.grp) & 1) && ((g_unsat >> ry.grp) & 1) && ry.active) {
+      mbar_wait(&s.bar[b], (chunk >> 1) & 1);  // the copy's data, seen by this thread
+      const float* buf = s.buf + b * s.buf_stride;
+      const float4* live = s.live + b * 2 * t.runrows;
+      const int q = t.quantum;
       float prefix = 0.f;  // optical depth of this chunk's hits in front
       float cum_add = 0.f;
-      for (int q = 0; q < R; ++q) {
-        const int r = s_idx[q];
-        const float sigma = s_sigma[r];
-        if (sigma == 0.f) continue;  // same row for every thread: uniform
+      for (int i = 0; i < n_live; ++i) {
+        const float4 lo = live[2 * i];
+        const float4 hi = live[2 * i + 1];
         // Slab test in FMA form, t = box*invd - o*invd with one rounding,
         // as the TPU kernel (and XLA on the CPU) computes it.
-        const float t1x = fmaf(buf[0 * R + r], ivx, -oix);
-        const float t2x = fmaf(buf[3 * R + r], ivx, -oix);
-        const float t1y = fmaf(buf[1 * R + r], ivy, -oiy);
-        const float t2y = fmaf(buf[4 * R + r], ivy, -oiy);
-        const float t1z = fmaf(buf[2 * R + r], ivz, -oiz);
-        const float t2z = fmaf(buf[5 * R + r], ivz, -oiz);
+        const float t1x = fmaf(lo.x, ivx, -oix);
+        const float t2x = fmaf(hi.x, ivx, -oix);
+        const float t1y = fmaf(lo.y, ivy, -oiy);
+        const float t2y = fmaf(hi.y, ivy, -oiy);
+        const float t1z = fmaf(lo.z, ivz, -oiz);
+        const float t2z = fmaf(hi.z, ivz, -oiz);
         const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
         const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
         const float entry = fmaxf(tn, tmin);
         if (!(tf > entry && entry <= tmax)) continue;
-        const float sdt = sigma * (tf - entry + p.step_eps) * dscale;
+        const float sdt = lo.w * (tf - entry + p.step_eps) * dscale;
         if (sdt == 0.f) continue;
         const float light = expf(-(cum + prefix));
         if (light > p.stop_thresh) {
           const float contrib = light * (1.f - expf(-sdt));
+          const int r = __float_as_int(hi.w);
+          const float* coef0 = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1)) + 6 * q;
 #pragma unroll
           for (int c = 0; c < kMaxChannels; ++c) {
             if (c < nc) {
-              const float* coef = buf + (6 + c * bd) * R + r;
+              const float* coef = coef0 + c * bd * q;
               float raw = 0.f;
-              for (int k = 0; k < bd; ++k) raw += s_basis[k * rays + tid] * coef[k * R];
+              for (int k = 0; k < bd; ++k) raw += s_basis[k * ncons + tid] * coef[k * q];
               const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw) + 0.5f : raw;
               acc[c] += contrib * rgb;
             }
@@ -246,54 +596,62 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) tile_composite_kernel
       }
       cum += cum_add;  // opacity freezes once a ray stops (alive-gated)
     }
+    nbar_arrive(kDone + b, nb);  // buffer b and its list are free
   }
 
-  float* out = p.out + ray * 8;
+  if (ry.active) {
+    float* out = p.out + ry.ray * 8;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float v = 0.f;
-    if (c < nc) v = acc[c < kMaxChannels ? c : 0];
-    if (c == nc) v = expf(-cum);
-    out[c] = v;
+    for (int c = 0; c < 8; ++c) {
+      float v = 0.f;
+      if (c < nc) v = acc[c < kMaxChannels ? c : 0];
+      if (c == nc) v = expf(-cum);
+      out[c] = v;
+    }
   }
 }
 
-struct BwdParams {
-  const int* meta;
-  const int* piece_c0;
-  const int* piece_lo;
-  const int* piece_hi;
-  const int* piece_mask;
-  const float* o;
-  const float* invd;
-  const float* aux;
-  const float* mdir;
-  const float* basis;
-  const float* soa;
-  const float* out;  // [T, rays, 8]: the forward's output (rgb(nc), transmittance)
-  const float* g;    // [T, rays, 8]: its cotangent
-  float* gsoa;       // [n_blk, fields, quantum]: zero on entry, gradients added
-  int ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum;
-  float step_eps;
-  int sigmoid;
-};
+// ---- The backward ----
 
 // Backward of the exact-mode tile compositor (stop_thresh 0, no saturation
 // exits) with respect to the soa: the port of plenoctree_tpu/octree/
 // tile_opt.py::_tile_bwd_kernel.
 //
-// The forward replayed in its chunk order and (key, lane) precedence, one
-// thread per ray. No reverse walk and no stored per-hit state: for hit i of
-// a ray,
+// The forward replayed in its chunk order and (key, row) precedence, one
+// thread per ray, over the same live list. No reverse walk and no stored
+// per-hit state: for hit i of a ray,
 //   dL/dsdt_i = gsum_i * light_i * exp(-sdt_i) - suffix_i,
 //   suffix_i  = T_all - prefix_i - e_i,   e_i = gsum_i * contrib_i,
 // where gsum = sum_c g_c rgb_c, T_all = sum_{c <= nc} g_c out_c comes from
 // the forward output, and prefix_i (the sum of e over the hits in front of i)
 // runs in the sorted walk. Row gradients: sigma gets sum_rays dL/dsdt * dtv
-// (only rows with sigma > 0 are visited, so the ReLU gate holds); colour
+// (only rows with sigma > 0 are live, so the ReLU gate holds); colour
 // coefficient (c, k) gets sum_rays basis_k * g_c * contrib * rgb_c(1-rgb_c)
 // for SH/SG, basis_k * g_c * contrib for RGBA; geometry rows get none. A
 // quad group whose chunk-mask bit is clear is skipped, as on the TPU.
+//
+// The reduction over rays, as products (the TPU's basis^T . draw): each
+// warp keeps a tile D[nc + 1][8 slots][32 rays] in shared memory. A live row
+// that some lane of the warp hits takes the next slot: every lane writes its
+// per-channel cotangent g_c contrib rgb(1-rgb) (or g_c contrib) and its
+// dL/dsdt dtv, zero where it missed. Eight rows fill a slice, which goes
+// through the tensor cores: per channel basis_warp^T [bd x 32] . D_c
+// [32 x 8] as m16n8k8 TF32 mma (bd padded to 16 or 32), sigma as a ones
+// row times D_sigma. Each operand is split x = hi + lo into two TF32 values
+// and the product taken as hi.hi + hi.lo + lo.hi with f32 accumulation
+// (3xTF32), which keeps f32 accuracy where plain TF32 keeps ~3 digits; the
+// basis operand's split stays in registers for the whole tile. A slice's
+// [bd, 8] partials go into the chunk's shared [nvals, runrows] gradient
+// with shared-memory atomics (every warp adds to the same rows); there is
+// one such gradient per chunk in flight.
+//
+// Accumulation across tiles: the TPU adds each chunk into the gradient soa
+// by read-modify-write, race-free only because its grid runs in order. Here
+// tiles run at once and share soa rows, so once every warp is done with a
+// chunk the producer warp adds its gradient to device memory as float4
+// atomics (4 consecutive rows of a field), for non-zero quads only. The
+// order of those atomics changes from run to run, so two runs agree to f32
+// summation-order rounding, not bit for bit.
 //
 // Numerics: the slab test is the TPU backward's own `(box - o) * invd`, a
 // subtract and a multiply (the forward's is the FMA form); with --fmad=false
@@ -301,209 +659,267 @@ struct BwdParams {
 // the plain version's on the same inputs. sdt = sigma * dtv with
 // dtv = (tf - entry + eps) * dscale, in the TPU backward's order.
 //
-// Accumulation across rays and tiles: the TPU adds each chunk into the
-// gradient soa by read-modify-write, race-free only because its grid runs in
-// order. Here tiles run at once and share soa rows, so a chunk's row
-// gradients [nc*bd + 1, R] are summed in shared memory first: per visited
-// row, the warp reduce-scatters its values across lanes with shuffles (31
-// shuffles for 32 values, lane l ends with value l's warp sum) and each lane
-// adds one value with a shared-memory atomic. After the chunk, the non-zero
-// entries go to device memory with float atomicAdd. The order of those
-// atomics changes from run to run, so two runs agree to f32
-// summation-order rounding, not bit for bit.
-//
-// What bounds it on an H100: the per-(ray, row) replay of the forward
-// (slab test, decode) plus, per visited row, the warp reduction of
-// nc*bd + 1 values; the soa reads are the forward's. Rows whose sigma is 0
-// are skipped block-uniformly and the reduction only runs for warps with a
-// hit.
-//
-// Instantiated for tiles of up to 256 rays (127 registers) and of up to
-// 1024 rays, where the 1024-thread bound caps it at 64 registers (the
-// reduce-scatter's 32 values then spill): large tiles launch, slowly.
-template <int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) tile_composite_bwd_kernel(BwdParams p) {
-  extern __shared__ float4 smem4[];
-  const int R = p.runrows;
-  const int rays = blockDim.x;
+// What bounds it on an H100: the per-(ray, live row) replay of the forward
+// (slab test, colour decode of every hit) by the busiest warps; the
+// reduction is ~44 mma per 8 hit rows per warp, and the soa reads are the
+// forward's.
+template <int MT>  // m16 tiles of the basis: bd <= 16 * MT
+__global__ void __launch_bounds__(kThreads + 32, 1) tile_composite_bwd_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles& t = p.t;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int G = R / p.quantum;
-  const int bd = p.basis_dim;
-  const int nc = p.n_channels;
+  const int warp = tid >> 5;
+  const int nb = blockDim.x;  // consumers and the producer warp
+  const int ncons = nb - 32;  // consumer threads
+  const int bd = t.basis_dim;
+  const int nc = t.n_channels;
   const int ncb = nc * bd;
   const int nvals = ncb + 1;  // colour coefficients, then sigma
-  float* buf = reinterpret_cast<float*>(smem4);  // [fields, R]
-  float* s_basis = buf + p.fields * R;           // [bd, rays]
-  float* s_draw = s_basis + bd * rays;           // [nc, rays]: per-channel colour cotangent
-  float* s_gacc = s_draw + nc * rays;            // [nvals, R]: this chunk's row gradients
-  float* s_key = s_gacc + nvals * R;             // [R]
-  float* s_sigma = s_key + R;                    // [R]
-  int* s_idx = reinterpret_cast<int*>(s_sigma + R);  // [R]
-  int* s_piece = s_idx + R;                      // [4, G]
+  const int R = t.runrows;
+  const int SR = R + 4;  // row stride of the chunk gradient (spreads the mma partials' banks)
+  const int G = R / t.quantum;
+  size_t off;
+  const Stage s = carve_stage(smem, t, off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + off);  // [2]: list b built
+  uint64_t* empty = full + 2;                                // [2]: chunk in b walked
+  off += 32;
+  float* s_basis = reinterpret_cast<float*>(smem + off);  // [bd, ncons]
+  off += (size_t)bd * ncons * 4;
+  const size_t gacc_stride = (size_t)nvals * SR;
+  float* s_gacc = reinterpret_cast<float*>(smem + off);  // [2][nvals, SR]: one per chunk in flight
+  off += 2 * gacc_stride * 4;
+  float* s_d = reinterpret_cast<float*>(smem + off) + (size_t)warp * (nc + 1) * kSlots * 32;
+  off += (size_t)(ncons / 32) * (nc + 1) * kSlots * 32 * 4;
+  int* s_slot = reinterpret_cast<int*>(smem + off) + warp * kSlots;  // live row of each slot
 
-  const size_t tile = blockIdx.x;
-  const size_t ray = tile * rays + tid;
-  const int grp = tid / (rays / 4);
-  const int n_pieces = p.meta[tile * 4];
+  const Ray ry = ray_of(t);
+  const int n_pieces = t.meta[ry.tile * 4];
   const int n_chunks = (n_pieces + G - 1) / G;
-  const int* c0_t = p.piece_c0 + tile * p.ccap;
-  const int* lo_t = p.piece_lo + tile * p.ccap;
-  const int* hi_t = p.piece_hi + tile * p.ccap;
-  const int* mask_t = p.piece_mask + tile * p.ccap;
+  init_stage(s);
+  if (tid == 0) {
+    mbar_init(&full[0], 32);
+    mbar_init(&full[1], 32);
+    mbar_init(&empty[0], ncons);
+    mbar_init(&empty[1], ncons);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 2 * nvals * SR; i += nb) s_gacc[i] = 0.f;
+  if (tid < ncons) {
+    for (int k = 0; k < bd; ++k) s_basis[k * ncons + tid] = ry.active ? t.basis[ry.ray * bd + k] : 0.f;
+  }
+  __syncthreads();
+  if (tid >= ncons) {
+    produce_bwd(t, s, full, empty, s_gacc, gacc_stride, p.gsoa, ry.tile, n_pieces, n_chunks,
+                t.mdir[ry.tile * 4 + 0], t.mdir[ry.tile * 4 + 1], t.mdir[ry.tile * 4 + 2]);
+    return;
+  }
 
-  const float ox = p.o[ray * 4 + 0];
-  const float oy = p.o[ray * 4 + 1];
-  const float oz = p.o[ray * 4 + 2];
-  const float ivx = p.invd[ray * 4 + 0];
-  const float ivy = p.invd[ray * 4 + 1];
-  const float ivz = p.invd[ray * 4 + 2];
-  const float dscale = p.aux[ray * 4 + 0];
-  const float tmin = p.aux[ray * 4 + 1];
-  const float tmax = p.aux[ray * 4 + 2];
-  const float m0 = p.mdir[tile * 4 + 0];
-  const float m1 = p.mdir[tile * 4 + 1];
-  const float m2 = p.mdir[tile * 4 + 2];
-  for (int k = 0; k < bd; ++k) s_basis[k * rays + tid] = p.basis[ray * bd + k];
+  // The mma A operand, basis_warp^T [16 MT x 32 rays], split into TF32
+  // hi + lo, for the whole tile: a[mt][kb] holds rows (k) lane/4 and
+  // lane/4 + 8 of m-tile mt, columns (rays) 8 kb + lane%4 and + 4.
+  uint32_t a_hi[MT][4][4], a_lo[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = mt * 16 + (lane >> 2) + 8 * (i & 1);
+        const int ray = warp * 32 + kb * 8 + (lane & 3) + 4 * (i >> 1);
+        const float x = k < bd ? s_basis[k * ncons + ray] : 0.f;
+        a_hi[mt][kb][i] = to_tf32(x);
+        a_lo[mt][kb][i] = to_tf32(x - __uint_as_float(a_hi[mt][kb][i]));
+      }
+    }
+  }
+  // sigma's A operand: a ones row (row 0), exact in TF32.
+  const uint32_t one = (lane >> 2) == 0 ? __float_as_uint(1.f) : 0u;
+  const uint32_t a_one[4] = {one, 0u, one, 0u};
 
+  float ox = 0.f, oy = 0.f, oz = 0.f, ivx = 0.f, ivy = 0.f, ivz = 0.f;
+  float dscale = 0.f, tmin = 0.f, tmax = 0.f;
   float gc[kMaxChannels];
   float t_all = 0.f;
 #pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    gc[c] = c < nc ? p.g[ray * 8 + c] : 0.f;
-    if (c < nc) t_all += gc[c] * p.out[ray * 8 + c];
+  for (int c = 0; c < kMaxChannels; ++c) gc[c] = 0.f;
+  if (ry.active) {
+    ox = t.o[ry.ray * 4 + 0];
+    oy = t.o[ry.ray * 4 + 1];
+    oz = t.o[ry.ray * 4 + 2];
+    ivx = t.invd[ry.ray * 4 + 0];
+    ivy = t.invd[ry.ray * 4 + 1];
+    ivz = t.invd[ry.ray * 4 + 2];
+    dscale = t.aux[ry.ray * 4 + 0];
+    tmin = t.aux[ry.ray * 4 + 1];
+    tmax = t.aux[ry.ray * 4 + 2];
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      gc[c] = c < nc ? p.g[ry.ray * 8 + c] : 0.f;
+      if (c < nc) t_all += gc[c] * p.out[ry.ray * 8 + c];
+    }
+    t_all += p.g[ry.ray * 8 + nc] * p.out[ry.ray * 8 + nc];
   }
-  t_all += p.g[ray * 8 + nc] * p.out[ray * 8 + nc];
+
+  float* gacc = s_gacc;  // the current chunk's gradient
+
+  // The warp's filled slots [0, ns) through the tensor cores into gacc.
+  auto slice = [&](int ns) {
+    __syncwarp();
+    const int n = lane >> 2;  // slot of b0/b1
+#pragma unroll 1
+    for (int c = 0; c <= nc; ++c) {  // colour channels, then sigma
+      const float* dc = s_d + c * kSlots * 32 + n * 32;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (c == nc && mt > 0) break;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+          const int i0 = kb * 8 + (lane & 3);
+          const float x0 = n < ns ? dc[i0 ^ (n << 2)] : 0.f;
+          const float x1 = n < ns ? dc[(i0 + 4) ^ (n << 2)] : 0.f;
+          const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
+          const uint32_t l0 = to_tf32(x0 - __uint_as_float(h0));
+          const uint32_t l1 = to_tf32(x1 - __uint_as_float(h1));
+          if (c < nc) {
+            mma_tf32(d, a_lo[mt][kb], h0, h1);
+            mma_tf32(d, a_hi[mt][kb], l0, l1);
+            mma_tf32(d, a_hi[mt][kb], h0, h1);
+          } else {
+            mma_tf32(d, a_one, l0, l1);
+            mma_tf32(d, a_one, h0, h1);
+          }
+        }
+        // d[i]: row (k) lane/4 + 8 (i >> 1), column (slot) 2 (lane%4) + (i & 1).
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = mt * 16 + (lane >> 2) + 8 * (i >> 1);
+          const int col = 2 * (lane & 3) + (i & 1);
+          const bool row_ok = c < nc ? k < bd : k == 0;
+          if (row_ok && col < ns && d[i] != 0.f) {
+            const int j = c < nc ? c * bd + k : ncb;
+            atomicAdd(&gacc[j * SR + s_slot[col]], d[i]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  };
 
   float cum = 0.f;   // optical depth of the earlier chunks
   float pref = 0.f;  // sum of e over the earlier chunks
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    stage_chunk(c0_t, lo_t, hi_t, mask_t, n_pieces, chunk, G, p.quantum, p.fields, R, p.soa, buf,
-                s_piece);
-    sort_chunk(buf, s_piece, G, p.quantum, R, p.sigma_row, m0, m1, m2, s_key, s_sigma, s_idx);
-    for (int i = tid; i < nvals * R; i += rays) s_gacc[i] = 0.f;
-    __syncthreads();
-
-    int cmask = 0;
-    for (int g = 0; g < G; ++g) cmask |= s_piece[3 * G + g];
-    const bool on = (cmask >> grp) & 1;
+    const int b = chunk & 1;
+    mbar_wait(&full[b], (chunk >> 1) & 1);
+    gacc = s_gacc + b * gacc_stride;
+    const int n_live = s.list[2 * b];
+    const bool on = ((s.list[2 * b + 1] >> ry.grp) & 1) && ry.active;
+    const float* buf = s.buf + b * s.buf_stride;
+    const float4* live = s.live + b * 2 * R;
+    const int q = t.quantum;
+    mbar_wait(&s.bar[b], (chunk >> 1) & 1);  // the copy's data, seen by this thread
     float pre_sdt = 0.f;  // this chunk's optical depth in front
     float pre_e = 0.f;    // this chunk's e in front
-    for (int q = 0; q < R; ++q) {
-      const int r = s_idx[q];
-      const float sigma = s_sigma[r];
-      if (sigma == 0.f) continue;  // same row for every thread: uniform
+    int ns = 0;           // filled slots of the warp's tile
+    bool any = false;
+    for (int i = 0; i < n_live; ++i) {
+      const float4 lo = live[2 * i];
+      const float4 hi = live[2 * i + 1];
       bool hit = false;
       float vsig = 0.f;
+      float draw[kMaxChannels];
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c) draw[c] = 0.f;
+      float tf = 0.f, entry = 0.f;
       if (on) {
         // (box - o) * invd: a subtract, then a multiply (see above).
-        const float t1x = (buf[0 * R + r] - ox) * ivx;
-        const float t2x = (buf[3 * R + r] - ox) * ivx;
-        const float t1y = (buf[1 * R + r] - oy) * ivy;
-        const float t2y = (buf[4 * R + r] - oy) * ivy;
-        const float t1z = (buf[2 * R + r] - oz) * ivz;
-        const float t2z = (buf[5 * R + r] - oz) * ivz;
+        const float t1x = (lo.x - ox) * ivx;
+        const float t2x = (hi.x - ox) * ivx;
+        const float t1y = (lo.y - oy) * ivy;
+        const float t2y = (hi.y - oy) * ivy;
+        const float t1z = (lo.z - oz) * ivz;
+        const float t2z = (hi.z - oz) * ivz;
         const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-        const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-        const float entry = fmaxf(tn, tmin);
+        tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        entry = fmaxf(tn, tmin);
         hit = tf > entry && entry <= tmax;
-        if (hit) {
-          const float dtv = (tf - entry + p.step_eps) * dscale;
-          const float sdt = sigma * dtv;
-          const float light = expf(-(cum + pre_sdt));
-          const float esdt = expf(-sdt);
-          const float contrib = light * (1.f - esdt);
-          float gsum = 0.f;
-#pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c) {
-            if (c < nc) {
-              const float* coef = buf + (6 + c * bd) * R + r;
-              float raw = 0.f;
-              for (int k = 0; k < bd; ++k) raw += s_basis[k * rays + tid] * coef[k * R];
-              const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw) + 0.5f : raw;
-              gsum += gc[c] * rgb;
-              s_draw[c * rays + tid] =
-                  p.sigmoid ? gc[c] * contrib * rgb * (1.f - rgb) : gc[c] * contrib;
-            }
-          }
-          const float e = gsum * contrib;
-          const float suffix = t_all - (pref + pre_e) - e;
-          const float dsdt = gsum * light * esdt - suffix;
-          vsig = dsdt * dtv;
-          pre_sdt += sdt;
-          pre_e += e;
-        }
       }
-      if (!__any_sync(0xffffffffu, hit)) continue;  // no lane of this warp hit row r
-      // Row r's nvals values, 32 at a time: value j < ncb is colour
-      // coefficient (c, k) = (j / bd, j % bd), value ncb is sigma.
-      for (int base = 0; base < nvals; base += 32) {
-        float v[32];
-        int c = base / bd;
-        int k = base - c * bd;
+      if (!__any_sync(0xffffffffu, hit)) continue;  // no lane of this warp hits this row
+      if (hit) {
+        const float dtv = (tf - entry + p.step_eps) * dscale;
+        const float sdt = lo.w * dtv;
+        const float light = expf(-(cum + pre_sdt));
+        const float esdt = expf(-sdt);
+        const float contrib = light * (1.f - esdt);
+        const int r = __float_as_int(hi.w);
+        const float* coef0 = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1)) + 6 * q;
+        float gsum = 0.f;
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int j = base + i;
-          float x = 0.f;
-          if (hit) {
-            if (j < ncb) x = s_basis[k * rays + tid] * s_draw[c * rays + tid];
-            else if (j == ncb) x = vsig;
-          }
-          v[i] = x;
-          if (++k == bd) {
-            k = 0;
-            ++c;
-          }
-        }
-        // Reduce-scatter: after the step of width w, a lane holds the
-        // partial sums of the half of its values selected by its bit w.
-#pragma unroll
-        for (int w = 16; w >= 1; w >>= 1) {
-          const bool upper = (lane & w) != 0;
-#pragma unroll
-          for (int i = 0; i < w; ++i) {
-            const float send = upper ? v[i] : v[i + w];
-            const float keep = upper ? v[i + w] : v[i];
-            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, w);
+        for (int c = 0; c < kMaxChannels; ++c) {
+          if (c < nc) {
+            const float* coef = coef0 + c * bd * q;
+            float raw = 0.f;
+            for (int k = 0; k < bd; ++k) raw += s_basis[k * ncons + tid] * coef[k * q];
+            const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw) + 0.5f : raw;
+            gsum += gc[c] * rgb;
+            draw[c] = p.sigmoid ? gc[c] * contrib * rgb * (1.f - rgb) : gc[c] * contrib;
           }
         }
-        const int j = base + lane;
-        if (j < nvals && v[0] != 0.f) atomicAdd(&s_gacc[j * R + r], v[0]);
+        const float e = gsum * contrib;
+        const float suffix = t_all - (pref + pre_e) - e;
+        const float dsdt = gsum * light * esdt - suffix;
+        vsig = dsdt * dtv;
+        pre_sdt += sdt;
+        pre_e += e;
+      }
+      // Row i takes slot ns of the warp's tile (swizzled: conflict-free
+      // writes here and fragment reads in slice()).
+      float* dst = s_d + ns * 32 + (lane ^ (ns << 2));
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c)
+        if (c < nc) dst[c * kSlots * 32] = draw[c];
+      dst[nc * kSlots * 32] = vsig;
+      if (lane == 0) s_slot[ns] = __float_as_int(hi.w);
+      any = true;
+      if (++ns == kSlots) {
+        slice(kSlots);
+        ns = 0;
       }
     }
+    if (ns > 0) slice(ns);
+    if (any && lane == 0) s.ring[b] = 1;
     if (on) {
       cum += pre_sdt;
       pref += pre_e;
     }
-    __syncthreads();
-
-    // Add the chunk's row gradients into the pieces' soa blocks.
-    const int per_piece = nvals * p.quantum;
-    for (int i = tid; i < G * per_piece; i += rays) {
-      const int g = i / per_piece;
-      const int rem = i - g * per_piece;
-      const int j = rem / p.quantum;
-      const int l = rem - j * p.quantum;
-      const float v = s_gacc[j * R + g * p.quantum + l];
-      if (chunk * G + g < n_pieces && v != 0.f) {
-        const size_t blk = s_piece[g] / p.quantum;
-        atomicAdd(&p.gsoa[(blk * p.fields + 6 + j) * p.quantum + l], v);
-      }
-    }
-    __syncthreads();  // s_piece and s_gacc are rewritten by the next chunk
+    __syncwarp();
+    mbar_arrive(&empty[b]);  // this thread is done with buffer b, list b and gradient b
   }
 }
 
-// Launches one instantiation of a kernel: one block of `rays` threads per
-// tile, with its dynamic shared memory opted in above the 48 KB default.
+// Launches a kernel: `sub` blocks of `threads` threads per tile, with its
+// dynamic shared memory opted in above the 48 KB default.
 template <typename Kernel, typename P>
-int launch(Kernel kernel, const P& p, int n_tiles, int rays, size_t smem, void* stream) {
+int launch(Kernel kernel, const P& p, int n_tiles, int sub, int threads, size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<n_tiles, rays, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<n_tiles * sub, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Blocks per tile and threads per block for `rays` rays per tile: the
+// consumer warps, then the producer warp.
+void geometry(int rays, int* sub, int* threads) {
+  *sub = rays > kThreads ? 4 : 1;
+  *threads = ((rays / *sub + 31) / 32) * 32 + 32;
+}
+
+bool tiles_ok(int rays, int runrows, int quantum, int fields) {
+  return rays % 32 == 0 && rays <= 4 * kThreads && runrows <= kMaxRows && quantum >= 4 &&
+         (quantum & (quantum - 1)) == 0 && runrows % quantum == 0 && fields >= 6;
 }
 
 }  // namespace
@@ -511,9 +927,9 @@ int launch(Kernel kernel, const P& p, int n_tiles, int rays, size_t smem, void* 
 extern "C" {
 
 size_t pn_tile_composite_smem_bytes(int rays, int basis_dim, int fields, int runrows, int quantum) {
-  const int G = runrows / quantum;
-  return sizeof(float) * ((size_t)fields * runrows + (size_t)basis_dim * rays + 3 * (size_t)runrows) +
-         sizeof(int) * 4 * (size_t)G;
+  int sub, threads;
+  geometry(rays, &sub, &threads);
+  return stage_bytes(fields, runrows, quantum) + sizeof(float) * (size_t)basis_dim * (threads - 32);
 }
 
 int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo, const int* piece_hi,
@@ -523,22 +939,28 @@ int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo,
                       int runrows, int quantum, float step_eps, float stop_thresh, float od_cap,
                       int sigmoid, void* stream) {
   if (n_tiles == 0) return 0;
-  if (rays % 32 != 0 || rays > 1024) return (int)cudaErrorInvalidValue;
-  Params p{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa, out,
-           ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum,
-           step_eps, stop_thresh, od_cap, sigmoid};
+  if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  int sub, threads;
+  geometry(rays, &sub, &threads);
+  const Tiles tl{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa,
+                 rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, sub,
+                 __builtin_ctz(quantum)};
+  const Params p{tl, out, step_eps, stop_thresh, od_cap, sigmoid};
   const size_t smem = pn_tile_composite_smem_bytes(rays, basis_dim, fields, runrows, quantum);
-  if (rays <= 256) return launch(tile_composite_kernel<256, 4>, p, n_tiles, rays, smem, stream);
-  return launch(tile_composite_kernel<1024, 1>, p, n_tiles, rays, smem, stream);
+  return launch(tile_composite_kernel, p, n_tiles, sub, threads, smem, stream);
 }
 
 size_t pn_tile_composite_bwd_smem_bytes(int rays, int basis_dim, int n_channels, int fields,
                                         int runrows, int quantum) {
-  const int G = runrows / quantum;
+  int sub, threads;
+  geometry(rays, &sub, &threads);
+  const size_t cons = threads - 32;
   const size_t nvals = (size_t)n_channels * basis_dim + 1;
-  return sizeof(float) * ((size_t)fields * runrows + (size_t)(basis_dim + n_channels) * rays +
-                          nvals * runrows + 2 * (size_t)runrows) +
-         sizeof(int) * ((size_t)runrows + 4 * (size_t)G);
+  return stage_bytes(fields, runrows, quantum) + 32 +
+         sizeof(float) * ((size_t)basis_dim * cons + 2 * nvals * (runrows + 4) +
+                          cons / 32 * (n_channels + 1) * kSlots * 32) +
+         sizeof(int) * (cons / 32 * kSlots);
 }
 
 int pn_tile_composite_bwd(const int* meta, const int* piece_c0, const int* piece_lo,
@@ -549,16 +971,31 @@ int pn_tile_composite_bwd(const int* meta, const int* piece_c0, const int* piece
                           int sigma_row, int fields, int runrows, int quantum, float step_eps,
                           int sigmoid, void* stream) {
   if (n_tiles == 0) return 0;
-  if (n_channels < 1 || n_channels > kMaxChannels || sigma_row != 6 + n_channels * basis_dim ||
-      rays % 32 != 0 || rays > 1024)
+  if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels ||
+      sigma_row != 6 + n_channels * basis_dim || basis_dim < 1 || basis_dim > 32)
     return (int)cudaErrorInvalidValue;
-  BwdParams p{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa, out,
-              g, gsoa, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, step_eps,
-              sigmoid};
+  int sub, threads;
+  geometry(rays, &sub, &threads);
+  const Tiles tl{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa,
+                 rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, sub,
+                 __builtin_ctz(quantum)};
+  const BwdParams p{tl, out, g, gsoa, step_eps, sigmoid};
   const size_t smem =
       pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, fields, runrows, quantum);
-  if (rays <= 256) return launch(tile_composite_bwd_kernel<256>, p, n_tiles, rays, smem, stream);
-  return launch(tile_composite_bwd_kernel<1024>, p, n_tiles, rays, smem, stream);
+  if (basis_dim <= 16)
+    return launch(tile_composite_bwd_kernel<1>, p, n_tiles, sub, threads, smem, stream);
+  return launch(tile_composite_bwd_kernel<2>, p, n_tiles, sub, threads, smem, stream);
+}
+
+// The backward kernels' float4 atomics into the gradient soa and the
+// non-zero floats they carried, summed over launches since the last reset.
+int pn_tile_bwd_counts(unsigned long long* out2, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out2, g_bwd_counts, 2 * sizeof(unsigned long long));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long z[2] = {0, 0};
+    e = cudaMemcpyToSymbol(g_bwd_counts, z, sizeof(z));
+  }
+  return (int)e;
 }
 
 const char* pn_cuda_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

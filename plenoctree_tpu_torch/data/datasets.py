@@ -4,8 +4,9 @@ Port of plenoctree_tpu/data/datasets.py for the loaders the serving slice
 needs. Batches leave this module as host numpy; the renderer moves what it
 needs to its device. Differences from the JAX package: a single host (no
 jax.process_count), no prefetch thread (batches are built on demand), a
-seeded batch sampler, and PIL is imported inside the Blender loader, so the
-synthetic path runs without it. LLFF and NSVF wait (ROADMAP.md).
+seeded batch sampler, and images are read with the port's own PNG decoder
+(`utils/png.py`) and halved with a numpy box mean, so the blender loader
+needs neither PIL nor cv2. LLFF and NSVF wait (ROADMAP.md).
 """
 
 import json
@@ -16,6 +17,7 @@ import numpy as np
 
 from plenoctree_tpu_torch.data.rays import generate_rays, namedtuple_map
 from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
+from plenoctree_tpu_torch.utils.png import read_png
 
 
 def get_dataset(split, args):
@@ -27,11 +29,13 @@ def get_dataset(split, args):
     return dataset_dict[args.dataset](split, args)
 
 
-def _resize_area(image, new_w, new_h):
-    """Area-averaging resize (cv2.INTER_AREA equivalent)."""
-    import cv2
-
-    return cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_AREA)
+def _halve(image):
+    """The mean of each 2x2 pixel block: cv2.resize(image, (w // 2, h // 2),
+    interpolation=cv2.INTER_AREA) at an even size (the blender loader's
+    --factor 2); an odd last row or column is dropped."""
+    h, w = image.shape[0] // 2, image.shape[1] // 2
+    blocks = image[: 2 * h, : 2 * w].reshape(h, 2, w, 2, *image.shape[2:])
+    return (blocks[:, 0, :, 0] + blocks[:, 0, :, 1] + blocks[:, 1, :, 0] + blocks[:, 1, :, 1]) * 0.25
 
 
 class Dataset:
@@ -107,10 +111,7 @@ class Dataset:
 
 
 def _load_image(fname):
-    from PIL import Image
-
-    with open(fname, "rb") as f:
-        return np.array(Image.open(f), dtype=np.float32) / 255.0
+    return read_png(fname).astype(np.float32) / 255.0
 
 
 def _composite_white(image, white_bkgd):
@@ -134,7 +135,7 @@ class Blender(Dataset):
             fname = os.path.join(args.data_dir, frame["file_path"] + ".png")
             image = _load_image(fname)
             if args.factor == 2:
-                image = _resize_area(image, image.shape[1] // 2, image.shape[0] // 2)
+                image = _halve(image)
             elif args.factor > 0:
                 raise ValueError(
                     f"Blender dataset only supports factor=0 or 2, {args.factor} set."

@@ -111,6 +111,33 @@ def _render_views(split, n_views, resolution, white_bkgd, near, far, density_sca
     return images, camtoworlds, focal
 
 
+def write_blender_dataset(out_dir, n_train=12, n_test=4, resolution=64, white_bkgd=True,
+                          density_scale=1.0):
+    """The synthetic scene as an on-disk blender-format dataset
+    (transforms_{train,test,val}.json + 8-bit RGB PNGs written by
+    utils/png.py), as plenoctree_tpu/data/synthetic.py::write_blender_dataset
+    writes it; returns out_dir."""
+    import json
+    import os
+
+    from plenoctree_tpu_torch.utils.png import write_png
+
+    camera_angle_x = 2.0 * np.arctan(0.5 * resolution / (1.1 * resolution))
+    for split, n in (("train", n_train), ("test", n_test), ("val", n_test)):
+        images, c2ws, _ = render_synthetic_scene(
+            split, n, resolution, white_bkgd, near=2.0, far=6.0, density_scale=density_scale,
+        )
+        os.makedirs(os.path.join(out_dir, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            rel = f"./{split}/r_{i}"
+            write_png(os.path.join(out_dir, f"{rel}.png"), (images[i] * 255).astype(np.uint8))
+            frames.append({"file_path": rel, "transform_matrix": c2ws[i].tolist()})
+        with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(camera_angle_x), "frames": frames}, f)
+    return out_dir
+
+
 def build_scene_tree(depth=4, basis_dim=1, sh_noise=0.0, seed=0):
     """Bake the analytic scene into an SH octree (the recipe of
     tests/test_octree.py::build_scene_tree, generalised to SH degree > 0).

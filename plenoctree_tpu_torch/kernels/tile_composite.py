@@ -30,6 +30,11 @@ bwd_launches = 0  # kernel launches by composite_tiles_bwd in this process
 _SOURCES = ("tile_composite.cu",)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 _MAX_CHANNELS = 7
+_MAX_RUNROWS = 256  # the kernels sort a chunk's live rows in one warp, 8 per lane
+# The backward keeps a chunk gradient per chunk in flight: two of them at
+# runrows 256 would not fit in a block's shared memory.
+_MAX_BWD_RUNROWS = 128
+_MAX_BWD_BASIS = 32  # the backward's tensor-core products take the basis in two m16 tiles
 # The plain version does the state-independent work (row gathers, hit tests,
 # precedence, decode) for as many chunks at once as keep a [tiles, chunks,
 # rays, runrows] tensor within this many elements.
@@ -50,7 +55,12 @@ def _fma(a, b, c):
 
 def build():
     """Compile (once per process) and load the kernel library."""
-    lib = load_library("tile_composite", _SOURCES)
+    return _bind(load_library("tile_composite", _SOURCES))
+
+
+def _bind(lib):
+    """Set the C signatures on a build of csrc/tile_composite.cu (this tree's
+    or, for bench_tile, another's with the same C interface)."""
     if not getattr(lib, "_pn_bound", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pn_tile_composite.restype = i32
@@ -63,10 +73,30 @@ def build():
         lib.pn_tile_composite_bwd.argtypes = [ptr] * 14 + [i32] * 9 + [f32, i32, ptr]
         lib.pn_tile_composite_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.pn_tile_composite_bwd_smem_bytes.argtypes = [i32] * 6
+        if hasattr(lib, "pn_tile_bwd_counts"):
+            lib.pn_tile_bwd_counts.restype = i32
+            lib.pn_tile_bwd_counts.argtypes = [ptr, i32]
         lib.pn_cuda_error_string.restype = ctypes.c_char_p
         lib.pn_cuda_error_string.argtypes = [i32]
         lib._pn_bound = True
     return lib
+
+
+def bwd_atomic_counts(reset=False):
+    """(float4 atomics, non-zero floats they carried) that the backward
+    kernel has added into gradient soas since the last reset."""
+    lib = build()
+    out = (ctypes.c_ulonglong * 2)()
+    rc = lib.pn_tile_bwd_counts(ctypes.cast(out, ctypes.c_void_p), int(reset))
+    _raise_on(lib, rc, "pn_tile_bwd_counts")
+    return int(out[0]), int(out[1])
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} failed: CUDA error {rc} ({lib.pn_cuda_error_string(rc).decode()})"
+        )
 
 
 def _check_args(args, soa, basis_dim, n_channels, runrows, quantum):
@@ -103,10 +133,14 @@ def _check_args(args, soa, basis_dim, n_channels, runrows, quantum):
             f"runrows ({runrows}) must be a power of two and a multiple of quantum "
             f"({quantum}), itself a multiple of 4"
         )
+    if runrows > _MAX_RUNROWS:
+        raise ValueError(f"the CUDA kernels take runrows up to {_MAX_RUNROWS}, got {runrows}")
     if not 1 <= n_channels <= _MAX_CHANNELS:
         raise ValueError(f"n_channels must be in [1, {_MAX_CHANNELS}], got {n_channels}")
     if soa.shape[1] < 6 + n_channels * basis_dim + 1:
         raise ValueError(f"soa has {soa.shape[1]} fields, too few for the data layout")
+    if soa.data_ptr() % 16:
+        raise ValueError("soa must start on a 16-byte boundary (its blocks are bulk-copied)")
 
 
 def composite_tiles(
@@ -132,8 +166,15 @@ def composite_tiles(
     if soa.device.type != "cuda":
         raise ValueError(f"composite_tiles: unsupported device {soa.device}")
     _check_args(args, soa, basis_dim, n_channels, runrows, quantum)
-    lib = build()
-    T, rays = o.shape[0], o.shape[1]
+    out = _launch_fwd(build(), args, soa, **kw)
+    launches += 1
+    return out
+
+
+def _launch_fwd(lib, args, soa, *, fmt, basis_dim, n_channels, sigma_row, runrows, quantum,
+                step_eps, stop_thresh, od_cap):
+    """One launch of `lib`'s forward kernel on checked arguments."""
+    T, rays = args[5].shape[0], args[5].shape[1]
     fields = soa.shape[1]
     smem = lib.pn_tile_composite_smem_bytes(rays, basis_dim, fields, runrows, quantum)
     if smem > _MAX_SMEM:
@@ -143,16 +184,11 @@ def composite_tiles(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pn_tile_composite(
             *(t.data_ptr() for t in args), soa.data_ptr(), out.data_ptr(),
-            T, rays, piece_c0.shape[-1], basis_dim, n_channels, sigma_row, fields,
+            T, rays, args[1].shape[-1], basis_dim, n_channels, sigma_row, fields,
             runrows, quantum, float(step_eps), float(stop_thresh), float(od_cap),
             int(fmt in ("SH", "SG")), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"tile_composite launch failed: CUDA error {rc} "
-            f"({lib.pn_cuda_error_string(rc).decode()})"
-        )
-    launches += 1
+    _raise_on(lib, rc, "tile_composite launch")
     return out
 
 
@@ -327,7 +363,20 @@ def composite_tiles_bwd(
         raise ValueError(
             f"sigma_row must follow the colour rows (6 + {n_channels} * {basis_dim}), got {sigma_row}"
         )
-    lib = build()
+    if basis_dim > _MAX_BWD_BASIS or runrows > _MAX_BWD_RUNROWS:
+        raise ValueError(
+            f"the CUDA tile backward takes basis_dim up to {_MAX_BWD_BASIS} and runrows up to "
+            f"{_MAX_BWD_RUNROWS}, got {basis_dim} and {runrows}"
+        )
+    gsoa = _launch_bwd(build(), args, soa, out, g, **kw)
+    bwd_launches += 1
+    return gsoa
+
+
+def _launch_bwd(lib, args, soa, out, g, *, fmt, basis_dim, n_channels, sigma_row, runrows,
+                quantum, step_eps):
+    """One launch of `lib`'s backward kernel on checked arguments."""
+    T, rays = args[5].shape[0], args[5].shape[1]
     fields = soa.shape[1]
     smem = lib.pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, fields, runrows, quantum)
     if smem > _MAX_SMEM:
@@ -337,15 +386,10 @@ def composite_tiles_bwd(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pn_tile_composite_bwd(
             *(t.data_ptr() for t in args), soa.data_ptr(), out.data_ptr(), g.data_ptr(),
-            gsoa.data_ptr(), T, rays, piece_c0.shape[-1], basis_dim, n_channels, sigma_row,
+            gsoa.data_ptr(), T, rays, args[1].shape[-1], basis_dim, n_channels, sigma_row,
             fields, runrows, quantum, float(step_eps), int(fmt in ("SH", "SG")), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"tile_composite_bwd launch failed: CUDA error {rc} "
-            f"({lib.pn_cuda_error_string(rc).decode()})"
-        )
-    bwd_launches += 1
+    _raise_on(lib, rc, "tile_composite_bwd launch")
     return gsoa
 
 

@@ -307,3 +307,36 @@ def test_bench_trunk_noise_floor_runs_on_cpu():
     for r in res:
         assert len(r["plain_vs_f64"]) == 1 and r["plain_vs_f64"][0] < 0.05, r
         assert r["kernel_vs_f64"] == []
+
+
+@pytest.mark.parametrize("variant", ["default", "posenc+sh"])
+@pytest.mark.parametrize("candidate", ["true", "bias_dropped", "bias_scaled"])
+def test_small_row_bound_tells_true_from_broken_gradients(variant, candidate):
+    """bench_trunk's small-row check (the kernel's distance from the f64
+    evaluation at most TRUNK_SMALL_ROW_FACTOR times the plain version's),
+    held here to the gradients the plain version computes on the same rows
+    in reverse order: it passes them, and fails them with one bias gradient
+    dropped or scaled by 1.05."""
+    from plenoctree_tpu_torch import bench_trunk
+
+    var = VARIANTS[variant]
+    rng = np.random.default_rng(11)
+    params = init_trunk_params(rng, D_IN, DEPTH, WIDTH, SKIP, 1, N_RGB, bias_std=0.05)
+    flat, meta = trunk_weights(params, SKIP, posenc=var["posenc"], sh_dim=var["sh_dim"])
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    x = t(rng.uniform(-1.5, 1.5, (ROWS, 3)) if var["posenc"] else rng.normal(size=(ROWS, D_IN)))
+    basis = t(rng.normal(size=(ROWS, SH_DIM))) if var["sh_dim"] else None
+    gs = t(rng.normal(size=(ROWS, 1)))
+    gr = t(rng.normal(size=(ROWS, N_RGB // SH_DIM if var["sh_dim"] else N_RGB)))
+    plain = tfk.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis)
+    exact = bench_trunk.bwd_f64(flat, x, gs, gr, meta, basis)
+    rev = lambda a: None if a is None else a.flip(0)  # noqa: E731
+    got = [g.clone() for g in tfk.fused_trunk_bwd_reference(
+        flat, rev(x), rev(gs), rev(gr), meta, rev(basis))]
+    if candidate == "bias_dropped":
+        got[3] = torch.zeros_like(got[3])
+    elif candidate == "bias_scaled":
+        got[3] = got[3] * 1.05
+    d_got, d_plain, ok = bench_trunk.within_noise_floor(got, plain, exact)
+    assert 0.0 < d_plain < 0.01
+    assert ok == (candidate == "true"), (d_got, d_plain)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from plenoctree_tpu_torch import bench_trunk
 from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
 from plenoctree_tpu_torch.kernels import fused_mlp as F
 from plenoctree_tpu_torch.kernels import gather_sum as G
@@ -69,8 +70,8 @@ def test_kernel_matches_reference(basis_dim, res):
 @pytest.mark.parametrize("tile", [16, 32])
 def test_cuda_frame_matches_cpu_frame(tile):
     """A whole frame on the card (phase 1 in torch, the CUDA kernel) vs the
-    same renderer on the CPU (plain version): within 1e-4. Tile 32 runs the
-    kernel's 1024-thread instantiation."""
+    same renderer on the CPU (plain version): within 1e-4. Tile 32 (1024
+    rays) runs as four blocks per tile, one per quad group."""
     _need_cuda()
     tree = build_scene_tree(depth=4, basis_dim=16, sh_noise=0.05, seed=2)
     _, c2ws, focal = render_synthetic_scene("test", 2, 47, True, 2.0, 6.0)
@@ -105,6 +106,18 @@ def _grad_rel_errs(got, want):
     return [float((a - b).abs().max() / (b.abs().max() + 1e-9)) for a, b in zip(got, want)]
 
 
+def _check_noise_floor(n, flat, x, gs, gr, meta, basis, grads, ref):
+    """At the sparsity pass's 10,000 rows, besides TRUNK_GRAD_RTOL: the
+    kernel's gradients at most bench_trunk.TRUNK_SMALL_ROW_FACTOR times as
+    far from an f64 evaluation of the same algorithm as the plain
+    version's."""
+    if n != 10000:
+        return
+    exact = bench_trunk.bwd_f64(flat, x, gs, gr, meta, basis)
+    d_kernel, d_plain, ok = bench_trunk.within_noise_floor(grads, ref, exact)
+    assert ok, (d_kernel, d_plain)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [4096, 10000])
 def test_fused_trunk_matches_reference(n):
@@ -125,6 +138,7 @@ def test_fused_trunk_matches_reference(n):
     ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta)
     assert [g.shape for g in grads] == [g.shape for g in ref]
     assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    _check_noise_floor(n, flat, x, gs, gr, meta, None, grads, ref)
     again = F.fused_trunk_bwd(flat, x, gs, gr, meta)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
 
@@ -173,6 +187,7 @@ def test_fused_trunk_variants_match_reference(posenc, sh_dim, n):
     assert float((r - rr).abs().max()) <= TRUNK_FWD_ATOL
     ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis)
     assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    _check_noise_floor(n, flat, x, gs, gr, meta, basis, grads, ref)
     again = F.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
 
@@ -295,8 +310,8 @@ def _group_errs(a, b, sigma_row):
 @pytest.mark.parametrize("depth,basis_dim,res,tile", [(4, 16, 64, 16), (5, 1, 128, 16), (4, 16, 64, 32)])
 def test_tile_bwd_kernel_matches_reference(depth, basis_dim, res, tile):
     """The exact-mode forward and the backward kernel against their plain
-    versions; tile 32 (1024 rays per block) runs both kernels' second
-    instantiation."""
+    versions; tile 32 (1024 rays) runs both kernels as four blocks per tile,
+    one per quad group."""
     _need_cuda()
     opt, p2 = _exact_inputs(depth, basis_dim, res, tile=tile)
     soa = opt.static_soa
@@ -313,6 +328,119 @@ def test_tile_bwd_kernel_matches_reference(depth, basis_dim, res, tile):
     ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **opt._kw)
     sr = int(opt.r.index["sigma_row"])
     assert torch.isfinite(got).all() and not got[:, :6].any() and not got[:, sr + 1 :].any()
+    assert max(_group_errs(got, ref, sr).values()) <= BWD_RTOL
+    assert max(_group_errs(again, got, sr).values()) <= BWD_RERUN_RTOL
+
+
+def _synthetic_tiles(tile, bd, nc, seed, runrows=128, quantum=128, n_tiles=5, n_pieces=11):
+    """Phase-1 inputs made by hand, to reach what a scene seldom shows: rows
+    in tie groups (identical boxes, so equal keys, other sigma and colour:
+    the row index decides their order), sigma <= 0 and sigma > 0 rows
+    outside their run's [lo, hi), empty runs and zero quad-group masks
+    (chunks with no live row or no group), a tile without pieces, dense
+    high-sigma boxes (serving thresholds saturate rays mid-tile), a wall
+    that saturates every ray of tile 1 in its first chunk (the tile stops
+    there, with the next chunk's copy in flight), and
+    pieces over several chunks (the last one partly filled when a chunk
+    holds several pieces). Returns (p2, soa, kw without the thresholds)."""
+    rng = np.random.default_rng(seed)
+    rays = tile * tile
+    fields = 6 + nc * bd + 1
+    n_blk = 16
+    center = rng.uniform(-0.7, 0.7, (n_blk + 1, quantum, 3))
+    half = rng.uniform(0.05, 0.3, (n_blk + 1, quantum, 3))
+    tie = np.arange(quantum) // 4 * 4  # rows 4j..4j+3 share row 4j's box
+    center, half = center[:, tie], half[:, tie]
+    center[n_blk], half[n_blk] = 0.0, 1.0  # a wall of tied boxes, only in tile 1's first piece
+    soa = np.zeros((n_blk + 1, fields, quantum), np.float32)
+    soa[:, 0:3] = (center - half).transpose(0, 2, 1)
+    soa[:, 3:6] = (center + half).transpose(0, 2, 1)
+    soa[:, 6:-1] = rng.normal(0.0, 0.5, (n_blk + 1, nc * bd, quantum))
+    sigma = rng.normal(2.0, 3.0, (n_blk + 1, quantum))
+    sigma[rng.random((n_blk + 1, quantum)) < 0.2] = 0.0
+    sigma[n_blk] = 0.5
+    soa[:, -1] = sigma
+    ccap = n_pieces + 3
+    c0 = rng.integers(0, n_blk, (n_tiles, ccap)) * quantum
+    lo = c0 + rng.integers(0, quantum // 2, (n_tiles, ccap))
+    hi = lo + rng.integers(0, quantum // 2 + 1, (n_tiles, ccap))
+    hi[:, 1] = lo[:, 1]  # an empty run
+    c0[1, 0], lo[1, 0], hi[1, 0] = n_blk * quantum, n_blk * quantum, (n_blk + 1) * quantum
+    mask = rng.integers(1, 16, (n_tiles, ccap))
+    mask[:, 2] = 0  # no quad group
+    mask[1, 0] = 15
+    meta = np.zeros((n_tiles, 1, 4), np.int32)
+    meta[:, 0, 0] = n_pieces - np.arange(n_tiles) % 3
+    meta[-1, 0, 0] = 0
+    spread = np.full((n_tiles, 1, 1), 0.2)
+    spread[1] = 0.02  # tile 1's rays all meet the wall
+    d = np.concatenate([rng.normal(0.0, 1.0, (n_tiles, rays, 2)) * spread,
+                        np.ones((n_tiles, rays, 1))], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.zeros((n_tiles, rays, 4))
+    o[..., :3] = rng.normal(0.0, 0.05, (n_tiles, rays, 3)) + [0.0, 0.0, -3.0]
+    invd = np.zeros((n_tiles, rays, 4))
+    invd[..., :3] = 1.0 / d
+    aux = np.zeros((n_tiles, rays, 4))
+    aux[..., 0], aux[..., 1], aux[..., 2] = 1.0, 0.0, 100.0
+    mdir = np.zeros((n_tiles, 1, 4))
+    md = d.mean(1)
+    mdir[:, 0, :3] = md / np.linalg.norm(md, axis=-1, keepdims=True)
+    basis = rng.normal(0.0, 0.4, (n_tiles, rays, bd))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device="cuda")  # noqa: E731
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device="cuda")  # noqa: E731
+    p2 = (i32(meta), i32(c0[:, None]), i32(lo[:, None]), i32(hi[:, None]), i32(mask[:, None]),
+          f32(o), f32(invd), f32(aux), f32(mdir), f32(basis))
+    kw = dict(basis_dim=bd, n_channels=nc, sigma_row=fields - 1, runrows=runrows,
+              quantum=quantum, step_eps=1e-4)
+    return p2, f32(soa), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("bd,nc,fmt", [(1, 1, "RGBA"), (1, 3, "SH"), (4, 3, "SH"), (9, 1, "SH"),
+                                       (16, 3, "SH"), (25, 3, "SG")])
+def test_tile_kernels_match_reference_on_hand_made_tiles(tile, bd, nc, fmt):
+    """Both tile kernels against their plain versions on _synthetic_tiles:
+    the forward with serving thresholds (rays saturate) and in exact mode,
+    the backward on the exact-mode output, and its reruns."""
+    _need_cuda()
+    _check_tile_kernels(*_synthetic_tiles(tile, bd, nc, seed=bd * 10 + nc + tile), fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runrows,quantum", [(256, 128), (128, 64), (128, 32)])
+def test_tile_kernels_match_reference_with_several_pieces_per_chunk(runrows, quantum):
+    """As above with 2 or 4 pieces per chunk (the backward refuses runrows
+    256)."""
+    _need_cuda()
+    _check_tile_kernels(*_synthetic_tiles(16, 16, 3, seed=runrows + quantum, runrows=runrows,
+                                          quantum=quantum), "SH")
+
+
+def _check_tile_kernels(p2, soa, kw, fmt):
+    kw = dict(kw, fmt=fmt)
+    serving = dict(kw, stop_thresh=1e-2, od_cap=-float(np.log(1e-2)))
+    exact = dict(kw, stop_thresh=0.0, od_cap=1e30)
+    for mode in (serving, exact):
+        out = K.composite_tiles(*p2, soa, **mode)
+        ref = K.composite_tiles_reference(*p2, soa, **mode)
+        assert torch.isfinite(out).all()
+        assert float((out - ref).abs().max()) <= ATOL
+    trans = out[..., kw["n_channels"]]
+    assert float(trans.min()) < 1e-2 < float(trans.max())  # some rays saturate, some stay clear
+    g = torch.tensor(np.random.default_rng(7).normal(size=out.shape), dtype=torch.float32,
+                     device="cuda")
+    if kw["runrows"] > 128:  # two chunk gradients of 256 rows would not fit in shared memory
+        with pytest.raises(ValueError):
+            K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+        return
+    got = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+    again = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+    ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw)
+    sr = kw["sigma_row"]
+    assert torch.isfinite(got).all() and not got[:, :6].any()
+    assert float(ref[:, sr].abs().max()) > 0 and float(ref[:, 6:sr].abs().max()) > 0
     assert max(_group_errs(got, ref, sr).values()) <= BWD_RTOL
     assert max(_group_errs(again, got, sr).values()) <= BWD_RERUN_RTOL
 

@@ -5,18 +5,27 @@ the CPU, the march renders one and the gather probes run at a tiny size,
 the training slice runs train steps through its CLI with a checkpoint save
 and restore, the conversion slice extracts a tree from that checkpoint and
 optimizes it through their CLIs (the tile optimizer and the march), the
-eval CLI evaluates it through the march, and jax stays unimported."""
+eval CLI evaluates it through the march, and jax stays unimported; with cv2
+blocked too, a blender-layout scene loads and the eval CLI writes its
+frames as PNG files."""
 
+import json
 import os
 import subprocess
 import sys
+
+import cv2
+import numpy as np
+from PIL import Image
+
+from plenoctree_tpu_torch.utils.png import read_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import sys
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
@@ -72,7 +81,7 @@ print("OK")
 _TRAIN_SCRIPT = r"""
 import os, sys, tempfile
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import torch
@@ -158,3 +167,85 @@ def test_training_slice_trains_without_jax_stack():
     """Also runs the conversion CLIs (extract, optimize --tile_opt) on the
     checkpoint the training run wrote."""
     _run_blocked(_TRAIN_SCRIPT)
+
+
+_BLENDER_SCRIPT = r"""
+import sys
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "cv2", "tensorboardX"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import numpy as np
+from plenoctree_tpu_torch.cli import evaluate as eval_cli
+from plenoctree_tpu_torch.data import get_dataset
+from plenoctree_tpu_torch.utils import config as config_lib
+from plenoctree_tpu_torch.utils.png import read_png
+
+scene, out = sys.argv[1], sys.argv[2]
+want = np.load(scene + "/want.npz")
+for split, factor in (("test", 0), ("train", 2)):
+    args = config_lib.default_config(config="nerf_sh/config/blender", dataset="blender",
+                                     data_dir=scene, factor=factor, image_batching=False)
+    ds = get_dataset(split, args)
+    got = ds.images.reshape(want[split].shape)
+    assert got.dtype == np.float32, got.dtype
+    tol = 0.0 if factor == 0 else 1e-6
+    assert float(np.abs(got - want[split]).max()) <= tol, float(np.abs(got - want[split]).max())
+eval_cli.main(["--input", scene + "/tree.npz", "--config", "nerf_sh/config/blender",
+               "--dataset", "blender", "--data_dir", scene, "--fast_eval", "--device", "cpu",
+               "--write_images", out])
+frames = [read_png(f"{out}/{i:03d}.png") for i in range(2)]
+assert all(f.shape == (16, 16, 3) for f in frames)
+try:
+    eval_cli.main(["--input", scene + "/tree.npz", "--config", "nerf_sh/config/blender",
+                   "--dataset", "blender", "--data_dir", scene, "--fast_eval", "--device", "cpu",
+                   "--write_vid", out + "/v.mp4"])
+    raise AssertionError("--write_vid without imageio did not raise")
+except RuntimeError as e:
+    assert "--write_images" in str(e), e
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "cv2", "imageio")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_blender_scene_loads_and_evaluates_without_pil(tmp_path):
+    """A blender-layout scene (transforms_{train,test}.json + RGBA PNGs that
+    PIL writes) through get_dataset, and the eval CLI writing its frames,
+    with PIL, imageio and cv2 blocked: pixels equal PIL's (cv2's
+    INTER_AREA for --factor 2)."""
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.data.synthetic import build_scene_tree
+
+    scene = tmp_path / "scene"
+    want = {}
+    for split, n, res in (("train", 3, 18), ("test", 2, 16)):
+        (scene / split).mkdir(parents=True)
+        frames, images = [], []
+        for i in range(n):
+            img = np.random.default_rng(10 * i + res).integers(0, 256, (res, res, 4), np.uint8)
+            Image.fromarray(img, "RGBA").save(scene / split / f"r_{i}.png")
+            rgba = np.array(Image.open(scene / split / f"r_{i}.png"), dtype=np.float32) / 255.0
+            if split == "train":
+                rgba = cv2.resize(rgba, (res // 2, res // 2), interpolation=cv2.INTER_AREA)
+            images.append(rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:]))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": orbit_pose(0.5 + i).tolist()})
+        with open(scene / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": 0.69, "frames": frames}, f)
+        want[split] = np.stack(images)
+    np.savez(scene / "want.npz", **want)
+    build_scene_tree(depth=3).save(str(scene / "tree.npz"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", _BLENDER_SCRIPT, str(scene), str(tmp_path / "out")], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.array(Image.open(tmp_path / "out" / f"{i:03d}.png")),
+            read_png(tmp_path / "out" / f"{i:03d}.png"))
