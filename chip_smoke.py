@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving,
 NeRF-SH training, PlenOctree conversion (extraction, tile optimization),
-the gather probes, and the exact march (evaluation and optimization).
+the gather probes, the exact march (evaluation and optimization), and the
+SG head, the NeRF eval, the conversion fleet and compression.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,9 @@ Phases, one line each with its wall time:
      to the noise floor, bench_trunk.TRUNK_SMALL_ROW_FACTOR times the plain
      version's distance from an f64 evaluation); errors, two backward runs
      bitwise equal, kernel / plain / library ms, the bound, the backward's
-     workspace floor and the weight bytes read from L2 per row;
+     workspace floor and the weight bytes read from L2 per row; and the
+     SG25 head's cell (786,432 x 63 -> 8x256 -> 1 + 75, the head padded to
+     128 columns) under the same bounds;
   8. train main path: the train CLI (`plenoctree_tpu_torch.cli.train`)
      in-process, 200 steps of the blender SH16 config at batch 4096 with the
      fused kernels (kernel switches off); both launch counts must be > 0,
@@ -43,12 +46,13 @@ Phases, one line each with its wall time:
      wrapper's counters), the train PSNR rising;
   9. extract main path: the extract CLI (`plenoctree_tpu_torch.cli.extract`)
      in-process on phase 8's checkpoint_200 with the same model flags and
-     octree/config/syn_sh16.json's extraction flags at init_grid_depth 8;
+     octree/config/syn_sh16.json's extraction flags, cut to init_grid_depth
+     7 (phase 21 extracts the same checkpoint at 8, and its tree takes the
+     budgeted accel grid check);
      the trunk forward kernel's launch count must be > 0 and the tree must
      save and reload; leaf count, eval PSNR (through the exact march, the
      JAX CLI's default) and wall-clock per step; then one 800x800 exact
-     march frame of that tree (its accel grid is budgeted: a residual
-     descent), timed;
+     march frame of that tree, timed;
  10. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
      4096, with the kernel switches off and then on: rays/s, ms/step, peak
      memory, and the trunk kernels' share of device time and the idle
@@ -98,7 +102,36 @@ Phases, one line each with its wall time:
  18. march optimize main path: the optimize CLI without --tile_opt on phase
      13's washed tree with the same flags: no tile kernel launch, the best
      val PSNR beats the initial one by OPT_MIN_GAIN_DB, tree_opt_march.npz
-     loads.
+     loads;
+ 19. SG train main path: the train CLI on nerf_sh/config/misc/sg (SG25,
+     8x256, 64 + 128 samples, batch 1024, sparsity loss) with the fused
+     kernels, 200 steps on the synthetic scene: both trunk kernels launched
+     on the 1 + 75 head, the train PSNR rising, checkpoint_200 restoring
+     with equal params (sg_lambda, sg_mu_spher);
+ 20. NeRF eval main path: the NeRF eval CLI (`plenoctree_tpu_torch.cli.eval`)
+     on phase 8's SH16 and phase 19's SG25 checkpoints over phase 3's
+     blender scene (4 test views at 200x200): PSNR/SSIM, psnr.txt and
+     ssim.txt, the PNGs read back; one 800x800 view timed (s/image);
+ 21. fleet main path: `python -m plenoctree_tpu_torch.cli.task_manager
+     tasks.json --gpus "0"` on two tasks in the form of syn_sh16.json and
+     syn_sg25.json (published flags, --num_epochs 80 -> 2, the model flags
+     as trained) on those checkpoints and the synthetic scene's views at
+     32x32 (12 train, 4 test, 4 val): rc 0, two results.txt lines without
+     error, finite PSNRs, the wall-clock of each stage; then one 800x800
+     exact march frame of the SH16 tree (depth 8), timed, its accel grid
+     budgeted (phase 9's check before its cut);
+ 22. SG25 tiles, on an SG25 tree of the depth-7 serving tree's topology
+     (the fleet's trees exceed the tile index's 2^24 rows): one served
+     800x800 frame (launches > 0), the serving kernel against its plain
+     version (times, bound), both kernels' shared memory, then one
+     exact-mode pose's forward and backward kernels against their plain
+     versions (phase 11's checks);
+ 23. compression: the compress CLI (--bits 16) on both fleet trees: keys,
+     palette sizes <= 2^16, MB before and after, wall-clock; the SG25 tree
+     decoded here and rendered at 800x800 through the march, within
+     COMPRESS_MIN_PSNR of the uncompressed tree's frame and
+     COMPRESS_PALETTE_MIN_PSNR of the frame of the uncompressed tree with
+     the same sigma cut.
 
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
@@ -173,6 +206,7 @@ TRUNK_SMALL_ROWS = 10000
 # (262,144), and of the sparsity points (10,000, a ragged tile).
 TRUNK_CELLS = dict.fromkeys(("default", "posenc", "sh", "posenc+sh"),
                             (786432, 262144, TRUNK_SMALL_ROWS))
+TRUNK_CELLS["sg25"] = (TRUNK_ROWS,)  # the SG25 head's cell (the default variant)
 TRAIN_STEPS = 200
 VARIANT_STEPS = 40  # the train CLI with both kernel switches on
 BENCH_BATCH = 4096
@@ -183,11 +217,14 @@ BENCH_STEPS = 100
 # kernel runs differ by the order of their float atomics (measured 1.2e-7).
 BWD_RTOL = 1e-5
 BWD_RERUN_RTOL = 2e-6
-# syn_sh16's extraction flags (octree/config/syn_sh16.json) at the default
-# init_grid_depth 8, and its optimization flags with 2 epochs.
+# syn_sh16's extraction flags (octree/config/syn_sh16.json), cut from the
+# default init_grid_depth 8 to 7 (the fleet below extracts the same
+# checkpoint at 8 with the published flags), and its optimization flags
+# with 2 epochs.
+EXTRACT_DEPTH = 7
 EXTRACT_FLAGS = [
     "--autoscale", "--scale_alpha_thresh", "0.1", "--radius", "1.4", "--samples_per_cell", "256",
-    "--no_early_stop", "--renderer_step_size", "1e-5", "--init_grid_depth", "8",
+    "--no_early_stop", "--renderer_step_size", "1e-5", "--init_grid_depth", str(EXTRACT_DEPTH),
 ]
 OPT_FLAGS = [
     "--num_epochs", "2", "--sgd", "--lr", "1e7", "--no_early_stop", "--renderer_step_size", "1e-5",
@@ -234,6 +271,26 @@ LPIPS_RTOL = 1e-4
 # profiler window over whole steps of ~10^5 small launches took ~130 s each.
 MARCH_OPT_STEPS = 3
 MARCH_STEP_RANGES = {"march": "pn_march", "shade": "pn_shade", "update": "pn_update"}
+# The SG head's slice (phases 19-23). SG25 trains with its config's batch
+# (1024) and samples (64 + 128); every later stage gets the model flags it
+# was trained with, as phase 9 does.
+SG_CONFIG = "nerf_sh/config/misc/sg"
+TRAINED_MODEL_FLAGS = ["--use_pallas", "--compute_dtype", "bfloat16"]
+FLEET_EPOCHS = 2  # of the published 80, as phase 13 is cut
+# The fleet's views, 12 train / 4 test / 4 val of the synthetic scene. The
+# extraction's visibility mask keeps more leaves the more rays it casts: at
+# 200x200 14.1M (SH16) and 14.9M (SG25) leaves at depth 8, the fleet alone
+# 1044 s; at 64x64 7.1M and 7.7M, 449 s (my chip runs, PR 7).
+FLEET_RES = 32
+# The decoded 16-bit SG25 tree's frame against the uncompressed tree's:
+# the compressor zeroes every voxel with sigma <= 2 (a thin fog over a
+# 200-step NeRF's volume) and quantizes each basis function to 2^16 fp16
+# colours. Predicted 25-35 dB against the uncompressed tree, 40-55 dB
+# against the uncompressed tree with the same sigma cut (the palette's own
+# error) before the first run (PERF.md); a decode that misplaces a channel
+# or a basis function lands near 10 dB.
+COMPRESS_MIN_PSNR = 20.0
+COMPRESS_PALETTE_MIN_PSNR = 35.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -329,12 +386,21 @@ def trunk_vs_plain(dev):
 
     params = init_trunk_params(np.random.default_rng(SEED), 63, 8, 256, 4, 1, 48,
                                bias_std=TRUNK_BIAS_STD)
+    # The SG25 head (nerf_sh/config/misc/sg): 1 + 75 columns, padded to the
+    # wgmma width 128 (the SH16 head's 1 + 48 take 64).
+    sg_params = init_trunk_params(np.random.default_rng(SEED), 63, 8, 256, 4, 1, 75,
+                                  bias_std=TRUNK_BIAS_STD)
+    cells = [(name, params, pe, sh_dim) for name, (pe, sh_dim) in bench_trunk.VARIANTS.items()]
+    cells.append(("sg25", sg_params, None, 0))
     results = {}
-    for name, (pe, sh_dim) in bench_trunk.VARIANTS.items():
-        flat, meta = trunk_weights(params, 4, dev, pe, sh_dim)
+    for name, cell_params, pe, sh_dim in cells:
+        flat, meta = trunk_weights(cell_params, 4, dev, pe, sh_dim)
         for n in TRUNK_CELLS[name]:
             t0 = time.time()
             x, basis, gs, gr = bench_trunk.inputs(n, SEED, pe, sh_dim, dev)
+            if name == "sg25":  # cotangents of the 75 SG amplitudes, drawn as bench_trunk's
+                gr = torch.tensor(np.random.default_rng(SEED + n).normal(size=(n, 75)) * 1e-3,
+                                  dtype=torch.float32, device=dev)
             s, r = fused_mlp.fused_trunk(flat, x, meta, basis)
             grads = fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
             again = fused_mlp.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
@@ -701,11 +767,13 @@ def extract_main_path(train_dir):
         accel_level=vr.arrays["accel_level"], accel_reso=vr.arrays["accel_reso"],
         K_estimated=vr.contrib_slots, K_exact=vr._get_deferred(False).K,
     )
-    if not (np.isfinite(img).all() and vr.arrays["accel_level"] < back.max_depth + 1):
-        raise RuntimeError("bad march frame of the extracted tree, or an unbudgeted accel grid")
+    # At depth 7 the full accel grid fits its budget; phase 21b holds the
+    # fleet's depth-8 tree to a budgeted one.
+    if not (np.isfinite(img).all() and vr.arrays["accel_level"] <= back.max_depth + 1):
+        raise RuntimeError("bad march frame of the extracted tree, or a bad accel grid")
     if launches <= 0:
         raise RuntimeError("the extract CLI never launched the trunk forward kernel")
-    if back.n_leaves != tree.n_leaves or back.max_depth != 8 or tree.n_leaves == 0:
+    if back.n_leaves != tree.n_leaves or back.max_depth != EXTRACT_DEPTH or tree.n_leaves == 0:
         raise RuntimeError(f"bad extracted tree: {back}")
     if not math.isfinite(results["psnr"]):
         raise RuntimeError(f"bad extraction eval {results}")
@@ -743,8 +811,9 @@ def exact_inputs(opt, c2w):
     return ti, p2
 
 
-def tile_bwd_vs_plain(tree):
-    """Phase 11: the tile backward kernel against its plain version."""
+def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
+    """Phase 11 (and 22 on the SG25 tree): the tile backward kernel against
+    its plain version."""
     from plenoctree_tpu_torch.data.poses import orbit_pose
     from plenoctree_tpu_torch.kernels import tile_composite as K
     from plenoctree_tpu_torch.octree.tile_opt import TileOptimizer
@@ -794,7 +863,7 @@ def tile_bwd_vs_plain(tree):
     fwd_bound = bound_of(*tile_work(p2, soa, sr, opt.r.quantum, out.numel() * 4), F32_FLOPS)
     pieces = p2[0][:, 0, 0]
     phase(
-        "tile bwd kernel vs plain", t0, index_build_s=round(t_index, 2), tiles=pieces.numel(),
+        label, t0, index_build_s=round(t_index, 2), tiles=pieces.numel(),
         pieces_total=int(pieces.sum()), pieces_max=int(pieces.max()), ccap=opt.r.ccap,
         sigma_rel_err=errs["sigma"][0], colour_rel_err=errs["colour"][0], tol=BWD_RTOL,
         sigma_rerun_rel=errs["sigma"][1], colour_rerun_rel=errs["colour"][1],
@@ -1278,6 +1347,362 @@ def march_optimize_main_path(tile_best):
         raise RuntimeError("tree_opt_march.npz missing or not the optimized tree")
 
 
+def sg_train_main_path():
+    """Phase 19: the train CLI on nerf_sh/config/misc/sg (SG25) with the
+    fused kernels: both trunk kernels launched (on the 1 + 75 head, the only
+    trunk of the run), the train PSNR rising, checkpoint_200 restoring with
+    equal params (sg_lambda and sg_mu_spher among them)."""
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+    from plenoctree_tpu_torch.utils.metrics_writer import read_scalars
+
+    t0 = time.time()
+    train_dir = tempfile.mkdtemp(prefix="train_sg_", dir=os.path.join(ROOT, "build", "smoke"))
+    fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+    with open(os.path.join(train_dir, "train.log"), "w") as log, contextlib.redirect_stdout(log):
+        model, state = train_cli.main([
+            "--config", SG_CONFIG, "--dataset", "synthetic", "--train_dir", train_dir,
+            "--device", "cuda", *TRAINED_MODEL_FLAGS, "--max_steps", str(TRAIN_STEPS),
+            "--lr_final", "5e-5", "--print_every", "1", "--save_every", str(TRAIN_STEPS),
+            "--render_every", str(TRAIN_STEPS),
+        ])
+    torch.cuda.synchronize()
+    launches = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
+    psnr = [v for _, v in read_scalars(train_dir, "train_psnr")]
+    test_psnr = read_scalars(train_dir, "test_psnr")
+    first, last = float(np.mean(psnr[:20])), float(np.mean(psnr[-20:]))
+    _, meta = model.MLP_1.flat_weights()
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.zero_()
+    restored = ckpt_utils.restore_checkpoint(train_dir, ckpt_utils.create_train_state(fresh))
+    same = all(torch.equal(p, state.params[k]) for k, p in restored.params.items())
+    lam = torch.nn.functional.softplus(model.sg_lambda.detach())
+    phase(
+        "SG train main path", t0, config=SG_CONFIG, sg_dim=model.sg_dim, head_d_out=meta["d_out"],
+        steps=len(psnr), fwd_launches=launches[0], bwd_launches=launches[1], psnr_first20=first,
+        psnr_last20=last, test_psnr=test_psnr[-1][1] if test_psnr else None,
+        restored_step=restored.step, params_equal=same,
+        softplus_lambda_range=[round(float(lam.min()), 4), round(float(lam.max()), 4)],
+    )
+    if meta["d_out"] != 76 or min(launches) <= 0:
+        raise RuntimeError(f"the SG train run did not launch both trunk kernels on the 1 + 75 "
+                           f"head: d_out {meta['d_out']}, launches {launches}")
+    if len(psnr) != TRAIN_STEPS or not all(math.isfinite(v) for v in psnr) or not last > first:
+        raise RuntimeError(f"SG train PSNR did not rise: first 20 {first}, last 20 {last}")
+    if not (restored.step == TRAIN_STEPS and same and "sg_mu_spher" in restored.params):
+        raise RuntimeError("the SG checkpoint did not restore into a fresh TrainState")
+    return train_dir
+
+
+def nerf_eval_main_path(sh_dir, sg_dir):
+    """Phase 20: the NeRF eval CLI on phase 8's SH16 checkpoint and phase
+    19's SG25 one, on the blender scene of phase 3 (4 test views at
+    200x200): PSNR/SSIM, psnr.txt / ssim.txt, the PNGs read back; then one
+    800x800 view through the same renderer (engine.render_image at the
+    CLI's chunk), timed."""
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.cli import eval as nerf_eval_cli
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.data.rays import generate_rays
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.utils import config as config_lib
+    from plenoctree_tpu_torch.utils.png import read_png
+
+    scene = os.path.join(ROOT, "build", "smoke", "blender")
+    rays = generate_rays(RES, RES, 1.1 * RES, orbit_pose(0.0)[None])
+    rays = type(rays)(*[r[0] for r in rays])
+    for name, config, train_dir in (("SH16", "nerf_sh/config/blender", sh_dir),
+                                    ("SG25", SG_CONFIG, sg_dir)):
+        t0 = time.time()
+        argv = ["--config", config, "--dataset", "blender", "--data_dir", scene,
+                "--train_dir", train_dir, "--device", "cuda", *TRAINED_MODEL_FLAGS]
+        with open(os.path.join(train_dir, "eval.log"), "w") as log, contextlib.redirect_stdout(log):
+            psnr, ssim = nerf_eval_cli.main(argv)
+        wall = time.time() - t0
+        with open(os.path.join(train_dir, "psnr.txt")) as f:
+            psnr_txt = float(f.read())
+        with open(os.path.join(train_dir, "ssim.txt")) as f:
+            ssim_txt = float(f.read())
+        preds = os.path.join(train_dir, "test_preds")
+        shapes = sorted({read_png(os.path.join(preds, n)).shape for n in os.listdir(preds)})
+        cfg = config_lib.parse_flags(nerf_eval_cli.build_parser(), argv)
+        model, _ = get_model_state(cfg, seed=nerf_eval_cli.SEED, restore=True, device="cuda")
+        engine.render_image(model, rays, chunk=cfg.chunk, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img, _, _ = engine.render_image(model, rays, chunk=cfg.chunk, device="cuda")
+        s_per_image = time.perf_counter() - t1
+        del model
+        phase(f"NeRF eval main path ({name})", t0, psnr=psnr, ssim=ssim, psnr_txt=psnr_txt,
+              ssim_txt=ssim_txt, eval_wall_s=round(wall, 2), png_shapes=shapes,
+              n_png=len(os.listdir(preds)), chunk=cfg.chunk, s_per_800_image=s_per_image)
+        if not (math.isfinite(psnr) and math.isfinite(ssim) and psnr_txt == psnr
+                and ssim_txt == ssim):
+            raise RuntimeError(f"bad NeRF eval ({name}): {psnr} {ssim} {psnr_txt} {ssim_txt}")
+        if shapes != [(EVAL_RES, EVAL_RES, 1), (EVAL_RES, EVAL_RES, 3)] or len(os.listdir(preds)) != 8:
+            raise RuntimeError(f"bad NeRF eval images ({name}): {shapes}")
+        if img.shape != (RES, RES, 3) or not np.isfinite(img).all():
+            raise RuntimeError(f"bad 800x800 NeRF view ({name})")
+
+
+def fleet_main_path(sh_dir, sg_dir):
+    """Phase 21: `python -m plenoctree_tpu_torch.cli.task_manager tasks.json
+    --gpus "0"` as a subprocess, on a task file with two tasks in the form of
+    octree/config/syn_sh16.json and syn_sg25.json (their configs and
+    published extr/opt/eval flags, --num_epochs 80 -> FLEET_EPOCHS, plus
+    the model flags the checkpoints were trained with) on phase 8's and
+    phase 19's checkpoints and the synthetic scene written as a blender
+    scene at FLEET_RES (12 train, 4 test, 4 val views): rc 0, one
+    results.txt line per task without error and with finite PSNRs, and the
+    wall-clock of each stage (from the worker's stage lines). Returns
+    {name: the tree the fleet evaluated}."""
+    from plenoctree_tpu_torch.data.synthetic import write_blender_dataset
+
+    t0 = time.time()
+    fleet_dir = os.path.join(ROOT, "build", "smoke", "fleet")
+    os.makedirs(fleet_dir, exist_ok=True)
+    write_blender_dataset(os.path.join(ROOT, "build", "smoke", "fleet_scene"), 12, 4, FLEET_RES)
+    results_path = os.path.join(fleet_dir, "results.txt")
+    if os.path.exists(results_path):
+        os.remove(results_path)
+    tasks = []
+    for name, train_dir in (("syn_sh16.json", sh_dir), ("syn_sg25.json", sg_dir)):
+        with open(os.path.join(ROOT, "octree", "config", name)) as f:
+            task = json.load(f)["scene_tasks"][0]
+        opt = task["opt_flags"]
+        i = opt.index("--num_epochs")
+        tasks.append(dict(
+            task, train_dir=os.path.basename(train_dir), data_dir="fleet_scene",
+            extr_flags=task["extr_flags"] + TRAINED_MODEL_FLAGS,
+            opt_flags=opt[:i] + ["--num_epochs", str(FLEET_EPOCHS)] + opt[i + 2:]
+            + TRAINED_MODEL_FLAGS,
+            eval_flags=task["eval_flags"] + TRAINED_MODEL_FLAGS,
+        ))
+    task_file = os.path.join(fleet_dir, "tasks.json")
+    with open(task_file, "w") as f:
+        json.dump({"data_root": os.path.join(ROOT, "build", "smoke"),
+                   "train_root": os.path.join(ROOT, "build", "smoke"), "tasks": tasks}, f, indent=1)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    marks = []  # (seconds since start, stage line)
+    with open(os.path.join(fleet_dir, "fleet.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "plenoctree_tpu_torch.cli.task_manager", task_file,
+             "--gpus", "0"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, bufsize=1,
+        )
+        for line in proc.stdout:
+            log.write(line)
+            if line.startswith("[worker]"):
+                marks.append((time.time() - t0, line))
+        rc = proc.wait()
+    stages = {}  # task -> {stage: s}
+    for (t_a, a), (t_b, _) in zip(marks, marks[1:]):
+        if a.startswith("[worker] done"):
+            continue
+        stage = a.split("plenoctree_tpu_torch.cli.")[1].split()[0]
+        scene = a.split("--train_dir ")[1].split()[0]
+        stages.setdefault(os.path.basename(scene), {})[stage] = round(t_b - t_a, 2)
+    lines = []
+    if os.path.exists(results_path):
+        with open(results_path) as f:
+            lines = [json.loads(x) for x in f.read().splitlines() if x.strip()]
+    phase("fleet main path", t0, rc=rc, tasks=len(tasks), epochs=FLEET_EPOCHS,
+          stage_wall_s=json.dumps(stages),
+          results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]))
+    if rc != 0 or len(lines) != 2 or any("error" in r for r in lines):
+        raise RuntimeError(f"the fleet failed: rc {rc}, results {lines} (see {fleet_dir}/fleet.log)")
+    if not all(math.isfinite(r["raw_psnr"]) and math.isfinite(r["psnr"]) for r in lines):
+        raise RuntimeError(f"non-finite fleet PSNRs: {lines}")
+    trees = {}
+    for name, r in zip(("SH16", "SG25"), lines):
+        octrees = os.path.join(r["scene"], "octrees")
+        best = os.path.join(octrees, "tree_opt.npz")
+        trees[name] = best if os.path.exists(best) else os.path.join(octrees, "tree.npz")
+    return trees
+
+
+def fleet_tree_march(tree_path):
+    """Phase 21b: one 800x800 exact march frame (step 1e-5, the eval's mode)
+    of the fleet's depth-8 SH16 tree (phase 8's checkpoint at syn_sh16's
+    published depth): its accel grid must be budgeted (a residual descent,
+    level below depth + 1), as phase 9 checked before its depth was cut."""
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.octree import N3Tree
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
+
+    t0 = time.time()
+    tree = N3Tree.load(tree_path)
+    vr = VolumeRenderer(tree, step_size=1e-5, device="cuda")
+    build_s = time.time() - t0
+    t1 = time.perf_counter()
+    img = vr.render_persp(orbit_pose(0.0), RES, RES, 1.1 * RES, fast=False)
+    frame_ms = (time.perf_counter() - t1) * 1e3
+    phase("fleet tree march (depth 8)", t0, leaves=tree.n_leaves, depth=tree.max_depth,
+          march_800_exact_ms=frame_ms, march_host_build_s=round(build_s, 2),
+          accel_level=vr.arrays["accel_level"], accel_reso=vr.arrays["accel_reso"],
+          K_estimated=vr.contrib_slots, K_exact=vr._get_deferred(False).K)
+    if not (np.isfinite(img).all() and tree.max_depth == 8
+            and vr.arrays["accel_level"] < tree.max_depth + 1):
+        raise RuntimeError("bad march frame of the fleet's depth-8 tree, or an unbudgeted accel grid")
+
+
+def sg25_scene_tree(tree):
+    """An SG25 tree (data_dim 76, 88 soa fields) on the topology and sigma
+    of the depth-7 serving tree: seeded N(0, 0.5) amplitudes and lobes
+    (softplus-ed lambda in [0.5, 3), unit mu). The tile optimizer's index
+    holds every leaf three times and refuses 2^24 rows (as the JAX
+    package's does), which the fleet's depth-8 SG25 tree exceeds."""
+    from plenoctree_tpu_torch.octree.n3tree import DataFormat
+
+    rng = np.random.default_rng(SEED)
+    sg = tree.clone()
+    data = rng.normal(0.0, 0.5, tree.data.shape[:-1] + (76,)).astype(np.float32)
+    data[..., -1] = tree.data[..., -1]
+    sg.data, sg.data_dim, sg.data_format = data, 76, DataFormat("SG25")
+    mu = rng.normal(size=(25, 3))
+    mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+    sg.extra_data = np.concatenate([rng.uniform(0.5, 3.0, (25, 1)), mu], -1).astype(np.float32)
+    return sg
+
+
+def sg_tiles(scene_tree):
+    """Phase 22: the SG25 tile kernels, on an SG25 tree of the depth-7
+    serving tree's topology (sg25_scene_tree; 3,664,893 leaves, bd 25, 82
+    rows padded to 88 soa fields): one served 800x800 frame (launches
+    counted) and the serving kernel against its plain version on that
+    pose's inputs, with times and bound; both kernels' shared memory; then
+    one exact-mode pose's forward and backward against
+    composite_tiles_reference / composite_tiles_bwd_reference (phase 11's
+    checks). The tile index holds every kept leaf three times and refuses
+    2^24 rows, as the JAX package's does: the fleet's SG25 tree (6.1M
+    leaves above the serving threshold at 64x64 views) does not fit."""
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.kernels import tile_composite as K
+    from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+
+    t0 = time.time()
+    tree = sg25_scene_tree(scene_tree)
+    focal = 1.1 * RES
+    server = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2,
+                          output="u8", device="cuda")
+    build_s = time.time() - t0
+    K.launches = 0
+    server.render_persp(orbit_pose(0.0), RES, RES, focal)  # caps grow to this pose here
+    t1 = time.perf_counter()
+    frame = server.render_persp(orbit_pose(0.0), RES, RES, focal)
+    frame_ms = (time.perf_counter() - t1) * 1e3
+    launches = K.launches
+    ti = server.make_tile_inputs_fn(RES, RES, focal, server.rcap, server.w1cap, server.ccap)
+    idx = server.index
+    p2 = ti(orbit_pose(0.0), idx["csr"], idx["base"], server.extra_data, idx["blk_bbox"])[0]
+    soa, kw = idx["soa"], server._kernel_kw
+    out = K.composite_tiles(*p2, soa, **kw)
+    serve_err = float((out - K.composite_tiles_reference(*p2, soa, **kw)).abs().max())
+    serve_ms = cuda_ms(lambda: K.composite_tiles(*p2, soa, **kw), 10)
+    serve_plain = cuda_ms(lambda: K.composite_tiles_reference(*p2, soa, **kw), 1)
+    serve_bound = bound_of(*tile_work(p2, soa, kw["sigma_row"], kw["quantum"], out.numel() * 4),
+                           F32_FLOPS)
+    lib = K.build()
+    rows = kw["sigma_row"] + 1  # the rows the kernels stage per piece
+    smem_fwd = lib.pn_tile_composite_smem_bytes(p2[5].shape[1], kw["basis_dim"], rows,
+                                                kw["runrows"], kw["quantum"])
+    smem_bwd = lib.pn_tile_composite_bwd_smem_bytes(256, kw["basis_dim"], kw["n_channels"], rows,
+                                                    kw["runrows"], kw["quantum"])
+    phase("SG25 served frame", t0, format=repr(tree.data_format), leaves=tree.n_leaves,
+          index_build_s=round(build_s, 2), frame_ms=frame_ms, launches=launches,
+          kernel_max_abs_err=serve_err, tol=KERNEL_ATOL, kernel_ms=serve_ms,
+          plain_ms=serve_plain, bound_ms=serve_bound[0], bound_by=serve_bound[1],
+          soa_fields=soa.shape[1], staged_rows=rows, fwd_smem_bytes=smem_fwd,
+          bwd_smem_bytes=smem_bwd, max_smem=K._MAX_SMEM, bwd_smem_spare=K._MAX_SMEM - smem_bwd,
+          ccap=server.ccap)
+    if launches <= 0 or frame.shape != (RES, RES, 3) or frame.min() == frame.max():
+        raise RuntimeError("the SG25 served frame launched no tile kernel, or is bad")
+    if not serve_err <= KERNEL_ATOL:
+        raise RuntimeError(f"SG25 serving kernel disagrees: {serve_err} > {KERNEL_ATOL}")
+    del server, ti, idx, p2, soa, out
+    torch.cuda.empty_cache()
+    tile_bwd_vs_plain(tree, "SG25 tile bwd kernel vs plain")
+    torch.cuda.empty_cache()
+
+
+def compression_main_path(trees):
+    """Phase 23: the compress CLI (--bits 16) on both fleet trees: keys,
+    palette sizes, MB before and after, wall-clock; then the SG25 tree
+    decoded here (quant_colors[quant_map] back into data, sigma from the
+    npz; no package feature) and rendered at 800x800 through the march
+    (fast mode, step 1e-5; the tile index cannot hold this tree, phase 22),
+    against the uncompressed tree's frame (COMPRESS_MIN_PSNR) and against
+    the frame of the uncompressed tree with the compressor's sigma cut (the
+    palette's own error, COMPRESS_PALETTE_MIN_PSNR)."""
+    from plenoctree_tpu_torch.cli import compress as compress_cli
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.octree import N3Tree
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
+
+    out = {}
+    for name, src in trees.items():
+        t0 = time.time()
+        out_dir = os.path.join(ROOT, "build", "smoke", "compressed", name)
+        compress_cli.main([src, "--out_dir", out_dir, "--bits", "16", "--overwrite"])
+        wall = time.time() - t0
+        dst = os.path.join(out_dir, os.path.basename(src))
+        z = np.load(dst)
+        files = sorted(z.files)
+        pal = z["quant_colors"].shape
+        out[name] = dict(dst=dst, wall_s=wall, mb_before=os.path.getsize(src) / 2**20,
+                         mb_after=os.path.getsize(dst) / 2**20, palette=pal,
+                         kept=int((z["sigma"] > 0).sum()))
+        phase(f"compression ({name})", t0, files=files, quant_colors_shape=list(pal),
+              quant_map_shape=list(z["quant_map"].shape), kept_voxels=out[name]["kept"],
+              mb_before=out[name]["mb_before"], mb_after=out[name]["mb_after"], wall_s=wall)
+        if not {"quant_colors", "quant_map", "sigma"} <= set(files) or "data" in files:
+            raise RuntimeError(f"bad compressed npz keys ({name}): {files}")
+        if not pal[1] <= 2**16 or z["quant_map"].dtype != np.uint16:
+            raise RuntimeError(f"bad palette ({name}): {pal}, {z['quant_map'].dtype}")
+
+    t0 = time.time()
+    sg_tree = N3Tree.load(trees["SG25"])
+    z = np.load(out["SG25"]["dst"])
+    qc, qm = z["quant_colors"].astype(np.float32), z["quant_map"]
+    bd = qc.shape[0]
+    n = sg_tree.n_internal
+    full = sg_tree.data[:n]
+    cut = sg_tree.clone()  # the compressor's sigma cut (default --sigma_thresh 2)
+    cut.data[:n, ..., -1] = np.where(full[..., -1] > 2.0, full[..., -1], 0.0)
+    decoded = sg_tree.clone()
+    for i in range(bd):
+        rgb = qc[i][qm[i]]  # [n, 2, 2, 2, 3]
+        for c in range(3):
+            decoded.data[:n, ..., c * bd + i] = rgb[..., c]
+    decoded.data[:n, ..., -1] = z["sigma"]
+    kept = full[..., -1] > 2.0
+    coeff_err = float(np.abs(decoded.data[:n][kept][:, :-1] - full[kept][:, :-1]).mean())
+    frames = {}
+    for name, t in (("full", sg_tree), ("cut", cut), ("decoded", decoded)):
+        vr = VolumeRenderer(t, step_size=1e-5, device="cuda")
+        img = vr.render_persp(orbit_pose(0.0), RES, RES, 1.1 * RES, fast=True)
+        frames[name] = np.clip(img, 0.0, 1.0).astype(np.float64)
+        del vr
+        torch.cuda.empty_cache()
+    del cut, decoded
+
+    def psnr(a, b):
+        return -10.0 * math.log10(max(float(np.mean((a - b) ** 2)), 1e-20))
+
+    vs_full, vs_cut = psnr(frames["decoded"], frames["full"]), psnr(frames["decoded"], frames["cut"])
+    phase("compressed SG25 frame", t0, psnr_vs_uncompressed=vs_full, min_psnr=COMPRESS_MIN_PSNR,
+          psnr_vs_same_sigma_cut=vs_cut, palette_min_psnr=COMPRESS_PALETTE_MIN_PSNR,
+          psnr_cut_vs_uncompressed=psnr(frames["cut"], frames["full"]),
+          mean_abs_coeff_err=coeff_err, kept_voxels=int(kept.sum()))
+    if not (vs_full >= COMPRESS_MIN_PSNR and vs_cut >= COMPRESS_PALETTE_MIN_PSNR):
+        raise RuntimeError(f"the decoded SG25 tree renders too far from the uncompressed one: "
+                           f"{vs_full} dB (floor {COMPRESS_MIN_PSNR}), {vs_cut} dB with the same "
+                           f"sigma cut (floor {COMPRESS_PALETTE_MIN_PSNR})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1441,6 +1866,15 @@ def main():
     del vr, frames
     torch.cuda.empty_cache()
     march_optimize_main_path(tile_opt_best)
+    torch.cuda.empty_cache()
+    with kernel_switches(False):
+        sg_dir = sg_train_main_path()
+        nerf_eval_main_path(train_dir, sg_dir)
+    torch.cuda.empty_cache()
+    fleet_trees = fleet_main_path(train_dir, sg_dir)
+    fleet_tree_march(fleet_trees["SH16"])
+    sg_tiles(tree)
+    compression_main_path(fleet_trees)
     phase("total", start)
 
     bench_rows = trunk["default", TRUNK_ROWS]

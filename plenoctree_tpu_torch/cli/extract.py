@@ -10,8 +10,10 @@ march, as the JAX CLI does (the tile renderer with `--fast_eval`). The
 NeRF is queried on `--device` (the fused trunk kernel with --use_pallas on
 a GPU).
 
-Not ported (raise NotImplementedError naming ROADMAP.md): use_viewdirs
-models (SH projection) and the SG head.
+SG models (sg_dim > 0) give SG{sg_dim} trees whose extra_data [N, 4]
+holds (softplus lambda, cartesian mu). Not ported (raises
+NotImplementedError naming ROADMAP.md): use_viewdirs models (SH
+projection).
 
 Usage:
   python -m plenoctree_tpu_torch.cli.extract --train_dir <ckpt dir> \\
@@ -74,7 +76,15 @@ def main(argv=None):
     model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
     print("  from step", state.step)
 
-    data_format = f"SH{(cfg.sh_deg + 1) ** 2}" if cfg.sh_deg > 0 else None
+    data_format = None
+    extra_data = None
+    if cfg.sg_dim > 0:
+        data_format = f"SG{cfg.sg_dim}"
+        extra_data = extract_lib.sg_extra_data(
+            model.sg_lambda.detach().cpu().numpy(), model.sg_mu_spher.detach().cpu().numpy()
+        )
+    elif cfg.sh_deg > 0:
+        data_format = f"SH{(cfg.sh_deg + 1) ** 2}"
     if data_format is not None:
         print("Detected format:", data_format)
 
@@ -110,6 +120,8 @@ def main(argv=None):
     num_rgb_channels = cfg.num_rgb_channels
     if cfg.sh_deg >= 0:
         num_rgb_channels *= (cfg.sh_deg + 1) ** 2
+    elif cfg.sg_dim > 0:
+        num_rgb_channels *= cfg.sg_dim
     data_dim = 1 + num_rgb_channels
     print("data dim is", data_dim)
 
@@ -122,6 +134,7 @@ def main(argv=None):
         radius=radius,
         center=center,
         data_format=data_format,
+        extra_data=extra_data,
     )
     extract_lib.step1_build(cfg, tree, points_fn, dataset, device=device)
     extract_lib.step2_fill(cfg, tree, points_fn, device=device)

@@ -16,9 +16,11 @@
 // chunk's rows in front-to-back order with a running optical depth.
 // What the design does about it, in both kernels: a block is up to 8
 // consumer warps (one thread per ray) and one producer warp.
-// - Staging: each piece is one contiguous fields x quantum block (28 KB per
-//   chunk for SH16 at runrows 128), copied by the producer with
-//   cp.async.bulk into one of two shared buffers and completed on that
+// - Staging: each piece is the first sigma_row + 1 rows of one contiguous
+//   fields x quantum block (the box, the data and sigma; the soa pads its
+//   fields to a multiple of 8, and the padding is not copied): 28 KB per
+//   chunk for SH16 at runrows 128, 41 KB for SG25, copied by the producer
+//   with cp.async.bulk into one of two shared buffers and completed on that
 //   buffer's mbarrier. The next chunk's copy is in flight while the
 //   consumers walk the current one.
 // - A compacted, sorted live list, built by the producer warp one chunk
@@ -35,10 +37,11 @@
 //   one OR of each warp's group bits before READY; in the backward, whose
 //   warps never need each other's state, mbarriers (FULL, EMPTY), so a
 //   consumer warp can run a chunk ahead of the slowest one.
-// Occupancy: the forward keeps two blocks of 288 threads per SM (two 28 KB
-//   buffers, two live lists and the basis are 81 KB a block, 89
-//   registers); the backward one (two chunk gradients and the per-warp
-//   cotangent tiles besides: ~166 KB).
+// Occupancy: the forward keeps two blocks of 288 threads per SM for SH16
+//   (two 28 KB buffers, two live lists and the basis are 81 KB a block, 89
+//   registers) and one for SG25 (118 KB); the backward one (two chunk
+//   gradients and the per-warp cotangent tiles besides: 166 KB for SH16,
+//   231 KB of the 227 KiB a block may take for SG25).
 //
 // Numerics: f32 throughout (the TPU's use_bf16 operand rounding is not
 // reproduced). Built with --fmad=false, so nothing is contracted behind the
@@ -75,6 +78,7 @@ struct Tiles {
   int rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum;
   int sub;                // blocks per tile: 1, or 4 (one per quad group)
   int qshift;             // log2(quantum)
+  int srows;              // rows staged per piece: sigma_row + 1 (the rest is padding)
 };
 
 struct Params {
@@ -175,7 +179,7 @@ __device__ __forceinline__ void nbar_arrive(int id, int n) {
 // One block's shared state for the chunk pipeline; buffer b of a pair is
 // at base + b * stride.
 struct Stage {
-  float* buf;          // [2][G][fields][quantum]: the staged pieces
+  float* buf;          // [2][G][srows][quantum]: the staged pieces
   size_t buf_stride;   // floats per staging buffer
   int* piece;          // [2][4][G]: c0, lo, hi, mask of each staged chunk
   uint64_t* bar;       // [2]: one mbarrier per staging buffer
@@ -192,7 +196,7 @@ struct Stage {
 __device__ __forceinline__ void issue_chunk(const Tiles& t, const Stage& s, int b, int chunk,
                                             size_t tile, int n_pieces, int G) {
   const size_t base = tile * t.ccap;
-  const uint32_t bytes = (uint32_t)t.fields * t.quantum * 4;
+  const uint32_t bytes = (uint32_t)t.srows * t.quantum * 4;
   int* pc = s.piece + b * 4 * G;
   float* buf = s.buf + b * s.buf_stride;
   int valid = 0;
@@ -208,7 +212,7 @@ __device__ __forceinline__ void issue_chunk(const Tiles& t, const Stage& s, int 
     pc[3 * G + g] = ok ? t.piece_mask[base + pi] : 0;
     if (ok) {
       const size_t blk = (size_t)(c0 >> t.qshift);
-      bulk_g2s(buf + (size_t)g * t.fields * t.quantum, t.soa + blk * t.fields * t.quantum, bytes,
+      bulk_g2s(buf + (size_t)g * t.srows * t.quantum, t.soa + blk * t.fields * t.quantum, bytes,
                &s.bar[b]);
     }
   }
@@ -269,7 +273,7 @@ __device__ __forceinline__ void sort_and_write(const Tiles& t, const float* buf,
     const int e = lane * KPL + j;
     if (e < n) {
       const int r = (int)(v[j] & 0xffffffffu);
-      const float* row = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1));
+      const float* row = buf + (size_t)(r >> t.qshift) * t.srows * q + (r & (q - 1));
       live[2 * e] = make_float4(row[0], row[q], row[2 * q], row[t.sigma_row * q]);
       live[2 * e + 1] = make_float4(row[3 * q], row[4 * q], row[5 * q], __int_as_float(r));
     }
@@ -294,7 +298,7 @@ __device__ __forceinline__ void build_live(const Tiles& t, const Stage& s, int b
     unsigned long long kv = 0;
     if (r < R) {
       const int g = r >> t.qshift, l = r & (q - 1);
-      const float* row = buf + (size_t)g * t.fields * q + l;
+      const float* row = buf + (size_t)g * t.srows * q + l;
       const int rowid = pc[g] + l;
       ok = rowid >= pc[G + g] && rowid < pc[2 * G + g] && row[t.sigma_row * q] > 0.f;
       if (ok) {
@@ -426,7 +430,7 @@ __device__ void produce_bwd(const Tiles& t, const Stage& s, uint64_t* full, uint
 __device__ __forceinline__ Stage carve_stage(unsigned char* smem, const Tiles& t, size_t& off) {
   Stage s;
   const int G = t.runrows / t.quantum;
-  s.buf_stride = (size_t)t.fields * t.runrows;
+  s.buf_stride = (size_t)t.srows * t.runrows;
   s.buf = reinterpret_cast<float*>(smem);
   off = 2 * s.buf_stride * 4;
   s.live = reinterpret_cast<float4*>(smem + off);
@@ -445,9 +449,9 @@ __device__ __forceinline__ Stage carve_stage(unsigned char* smem, const Tiles& t
   return s;
 }
 
-__host__ __device__ inline size_t stage_bytes(int fields, int runrows, int quantum) {
+__host__ __device__ inline size_t stage_bytes(int rows, int runrows, int quantum) {
   const size_t G = runrows / quantum;
-  return (((size_t)2 * fields * runrows * 4 + (size_t)2 * runrows * 32 + 16 + 48 * G + 32) + 15) &
+  return (((size_t)2 * rows * runrows * 4 + (size_t)2 * runrows * 32 + 16 + 48 * G + 32) + 15) &
          ~(size_t)15;
 }
 
@@ -579,7 +583,7 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
         if (light > p.stop_thresh) {
           const float contrib = light * (1.f - expf(-sdt));
           const int r = __float_as_int(hi.w);
-          const float* coef0 = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1)) + 6 * q;
+          const float* coef0 = buf + (size_t)(r >> t.qshift) * t.srows * q + (r & (q - 1)) + 6 * q;
 #pragma unroll
           for (int c = 0; c < kMaxChannels; ++c) {
             if (c < nc) {
@@ -853,7 +857,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1) tile_composite_bwd_kernel(co
         const float esdt = expf(-sdt);
         const float contrib = light * (1.f - esdt);
         const int r = __float_as_int(hi.w);
-        const float* coef0 = buf + (size_t)(r >> t.qshift) * t.fields * q + (r & (q - 1)) + 6 * q;
+        const float* coef0 = buf + (size_t)(r >> t.qshift) * t.srows * q + (r & (q - 1)) + 6 * q;
         float gsum = 0.f;
 #pragma unroll
         for (int c = 0; c < kMaxChannels; ++c) {
@@ -926,10 +930,12 @@ bool tiles_ok(int rays, int runrows, int quantum, int fields) {
 
 extern "C" {
 
-size_t pn_tile_composite_smem_bytes(int rays, int basis_dim, int fields, int runrows, int quantum) {
+// Shared memory of a block; `rows` is the rows staged per piece,
+// sigma_row + 1.
+size_t pn_tile_composite_smem_bytes(int rays, int basis_dim, int rows, int runrows, int quantum) {
   int sub, threads;
   geometry(rays, &sub, &threads);
-  return stage_bytes(fields, runrows, quantum) + sizeof(float) * (size_t)basis_dim * (threads - 32);
+  return stage_bytes(rows, runrows, quantum) + sizeof(float) * (size_t)basis_dim * (threads - 32);
 }
 
 int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo, const int* piece_hi,
@@ -939,25 +945,27 @@ int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo,
                       int runrows, int quantum, float step_eps, float stop_thresh, float od_cap,
                       int sigmoid, void* stream) {
   if (n_tiles == 0) return 0;
-  if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels)
+  if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels ||
+      sigma_row < 6 || sigma_row >= fields)
     return (int)cudaErrorInvalidValue;
   int sub, threads;
   geometry(rays, &sub, &threads);
   const Tiles tl{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa,
                  rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, sub,
-                 __builtin_ctz(quantum)};
+                 __builtin_ctz(quantum), sigma_row + 1};
   const Params p{tl, out, step_eps, stop_thresh, od_cap, sigmoid};
-  const size_t smem = pn_tile_composite_smem_bytes(rays, basis_dim, fields, runrows, quantum);
+  const size_t smem =
+      pn_tile_composite_smem_bytes(rays, basis_dim, sigma_row + 1, runrows, quantum);
   return launch(tile_composite_kernel, p, n_tiles, sub, threads, smem, stream);
 }
 
-size_t pn_tile_composite_bwd_smem_bytes(int rays, int basis_dim, int n_channels, int fields,
+size_t pn_tile_composite_bwd_smem_bytes(int rays, int basis_dim, int n_channels, int rows,
                                         int runrows, int quantum) {
   int sub, threads;
   geometry(rays, &sub, &threads);
   const size_t cons = threads - 32;
   const size_t nvals = (size_t)n_channels * basis_dim + 1;
-  return stage_bytes(fields, runrows, quantum) + 32 +
+  return stage_bytes(rows, runrows, quantum) + 32 +
          sizeof(float) * ((size_t)basis_dim * cons + 2 * nvals * (runrows + 4) +
                           cons / 32 * (n_channels + 1) * kSlots * 32) +
          sizeof(int) * (cons / 32 * kSlots);
@@ -972,16 +980,17 @@ int pn_tile_composite_bwd(const int* meta, const int* piece_c0, const int* piece
                           int sigmoid, void* stream) {
   if (n_tiles == 0) return 0;
   if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels ||
-      sigma_row != 6 + n_channels * basis_dim || basis_dim < 1 || basis_dim > 32)
+      sigma_row != 6 + n_channels * basis_dim || sigma_row >= fields || basis_dim < 1 ||
+      basis_dim > 32)
     return (int)cudaErrorInvalidValue;
   int sub, threads;
   geometry(rays, &sub, &threads);
   const Tiles tl{meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis, soa,
                  rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, sub,
-                 __builtin_ctz(quantum)};
+                 __builtin_ctz(quantum), sigma_row + 1};
   const BwdParams p{tl, out, g, gsoa, step_eps, sigmoid};
-  const size_t smem =
-      pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, fields, runrows, quantum);
+  const size_t smem = pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, sigma_row + 1,
+                                                       runrows, quantum);
   if (basis_dim <= 16)
     return launch(tile_composite_bwd_kernel<1>, p, n_tiles, sub, threads, smem, stream);
   return launch(tile_composite_bwd_kernel<2>, p, n_tiles, sub, threads, smem, stream);

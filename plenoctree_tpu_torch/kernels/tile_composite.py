@@ -176,7 +176,9 @@ def _launch_fwd(lib, args, soa, *, fmt, basis_dim, n_channels, sigma_row, runrow
     """One launch of `lib`'s forward kernel on checked arguments."""
     T, rays = args[5].shape[0], args[5].shape[1]
     fields = soa.shape[1]
-    smem = lib.pn_tile_composite_smem_bytes(rays, basis_dim, fields, runrows, quantum)
+    # The kernel stages each piece's first sigma_row + 1 rows (the soa's
+    # padding rows past sigma are not copied).
+    smem = lib.pn_tile_composite_smem_bytes(rays, basis_dim, sigma_row + 1, runrows, quantum)
     if smem > _MAX_SMEM:
         raise ValueError(f"tile kernel needs {smem} B of shared memory (> {_MAX_SMEM})")
     out = torch.empty((T, rays, 8), dtype=torch.float32, device=soa.device)
@@ -378,7 +380,8 @@ def _launch_bwd(lib, args, soa, out, g, *, fmt, basis_dim, n_channels, sigma_row
     """One launch of `lib`'s backward kernel on checked arguments."""
     T, rays = args[5].shape[0], args[5].shape[1]
     fields = soa.shape[1]
-    smem = lib.pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, fields, runrows, quantum)
+    smem = lib.pn_tile_composite_bwd_smem_bytes(rays, basis_dim, n_channels, sigma_row + 1,
+                                                runrows, quantum)
     if smem > _MAX_SMEM:
         raise ValueError(f"tile backward kernel needs {smem} B of shared memory (> {_MAX_SMEM})")
     gsoa = torch.zeros_like(soa)

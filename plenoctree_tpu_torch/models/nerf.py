@@ -1,10 +1,12 @@
-"""Coarse + fine NeRF with an SH colour head.
+"""Coarse + fine NeRF with an SH or SG colour head.
 
-Port of plenoctree_tpu/models/nerf.py for the SH head without view
-conditioning (the flagship blender config): stratified coarse samples ->
-posenc -> MLP_0 -> SH decode -> compositing -> inverse-CDF fine resampling
--> MLP_1 -> compositing. Submodules are named MLP_0 / MLP_1, so the
-state_dict keys are flax's parameter paths (models/params.py).
+Port of plenoctree_tpu/models/nerf.py for the SH and SG heads without view
+conditioning (the blender configs, nerf_sh/config/misc/sg): stratified
+coarse samples -> posenc -> MLP_0 -> SH / SG decode -> compositing ->
+inverse-CDF fine resampling -> MLP_1 -> compositing. Submodules are named
+MLP_0 / MLP_1 and the SG head's global parameters sg_lambda [N] and
+sg_mu_spher [N, 2] (theta, phi) sit at the top level, so the state_dict
+keys are flax's parameter paths (models/params.py).
 
 With use_pallas the trunks run through the fused kernels, and, as in the
 JAX package, two opt-in switches move more into them:
@@ -13,8 +15,12 @@ sparsity points and extraction's queries) and PN_SH_IN_KERNEL=1 (the
 training forward's SH decode in the head's epilogue, against a basis
 computed once per ray).
 
-Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-use_viewdirs (the view-conditioned branch) and the SG head (sg_dim > 0).
+With the SG head (sg_dim > 0) the trunk emits 3 * sg_dim amplitudes and
+the fused kernels run it unchanged (1 + 3 * sg_dim head columns); the
+in-kernel decode is SH only, as in the JAX package.
+
+Not ported yet, raising NotImplementedError that names ROADMAP.md:
+use_viewdirs (the view-conditioned branch).
 
 Random draws come from an explicit torch.Generator, or ready-made through
 `draws` (keys 't_rand' [B, Sc], 'noise_c' [B, Sc], 'u' [B, Sf + 1],
@@ -28,10 +34,13 @@ import torch
 from torch import nn
 
 from plenoctree_tpu_torch.models.mlp import TrunkMLP
-from plenoctree_tpu_torch.models.params import init_trunk_params, params_from_flax
+from plenoctree_tpu_torch.models.params import (
+    init_sg_params, init_trunk_params, params_from_flax,
+)
 from plenoctree_tpu_torch.ops import sampling as ops_sampling
 from plenoctree_tpu_torch.ops.posenc import posenc
 from plenoctree_tpu_torch.ops.rendering import volumetric_rendering
+from plenoctree_tpu_torch.ops.sg import eval_sg
 from plenoctree_tpu_torch.ops.sh import eval_sh, sh_basis
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid}
@@ -56,13 +65,14 @@ class NerfModel(nn.Module):
         super().__init__()
         if cfg.use_viewdirs:
             raise NotImplementedError("use_viewdirs is not ported yet (ROADMAP.md)")
-        if cfg.sg_dim > 0:
-            raise NotImplementedError("the SG colour head is not ported yet (ROADMAP.md)")
+        if cfg.sh_deg >= 0 and cfg.sg_dim > 0:
+            raise ValueError("You can only use up to one of: SH, SG or use_viewdirs.")
         if str(cfg.net_activation) != "relu":
             raise NotImplementedError("only the relu trunk is ported (ROADMAP.md)")
         self.num_coarse_samples = cfg.num_coarse_samples
         self.num_fine_samples = cfg.num_fine_samples
         self.sh_deg = cfg.sh_deg
+        self.sg_dim = cfg.sg_dim
         self.near, self.far = cfg.near, cfg.far
         self.noise_std = cfg.noise_std
         self.white_bkgd = cfg.white_bkgd
@@ -76,6 +86,11 @@ class NerfModel(nn.Module):
         num_rgb = cfg.num_rgb_channels
         if cfg.sh_deg >= 0:
             num_rgb *= (cfg.sh_deg + 1) ** 2
+        elif cfg.sg_dim > 0:
+            num_rgb *= cfg.sg_dim
+            # Filled by construct_nerf (init_sg_params) or a checkpoint.
+            self.sg_lambda = nn.Parameter(torch.zeros(cfg.sg_dim))
+            self.sg_mu_spher = nn.Parameter(torch.zeros(cfg.sg_dim, 2))
         self.d_in = 3 + (6 * (cfg.max_deg_point - cfg.min_deg_point)
                          if cfg.min_deg_point != cfg.max_deg_point else 0)
         mlp_kwargs = dict(
@@ -120,7 +135,10 @@ class NerfModel(nn.Module):
         return raw_rgb.reshape(b, s, -1), raw_sigma.reshape(b, s, -1)
 
     def _decode_color(self, raw_rgb, viewdirs):
-        """SH decode of [B, S, C*K] coefficients against viewdirs [B, 1, 3]."""
+        """SH / SG decode of [B, S, C*K] coefficients against viewdirs [B, 1, 3]."""
+        if self.sg_dim > 0:
+            coeffs = raw_rgb.reshape(raw_rgb.shape[:-1] + (-1, self.sg_dim))
+            return eval_sg(self.sg_lambda, self.sg_mu_spher, coeffs, viewdirs)
         if self.sh_deg < 0:
             return raw_rgb
         k = (self.sh_deg + 1) ** 2
@@ -193,7 +211,8 @@ class NerfModel(nn.Module):
 
 def construct_nerf(cfg, seed=0):
     """A NerfModel from a config namespace, with flax's init (glorot-uniform
-    kernels, zero biases) drawn from numpy's generator at `seed`."""
+    kernels, zero biases) drawn from numpy's generator at `seed`, and the SG
+    head's parameters from init_sg_params (drawn after the trunks')."""
     model = NerfModel(cfg)
     rng = np.random.default_rng(seed)
     tree = {}
@@ -205,6 +224,8 @@ def construct_nerf(cfg, seed=0):
             rng, mlp.d_in, mlp.net_depth, mlp.net_width, mlp.skip_layer,
             mlp.num_sigma_channels, mlp.num_rgb_channels,
         )
+    if cfg.sg_dim > 0:
+        tree.update(init_sg_params(rng, cfg.sg_dim))
     model.load_state_dict(params_from_flax(tree))
     return model
 

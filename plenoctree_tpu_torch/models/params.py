@@ -1,7 +1,8 @@
 """Weights carried across between the flax parameter tree and the port.
 
 The port's modules keep flax's names and layouts: `MLP_k.Dense_i.kernel`
-is flax's `MLP_k/Dense_i/kernel`, an [in, out] matrix (not transposed), so
+is flax's `MLP_k/Dense_i/kernel`, an [in, out] matrix (not transposed), and
+the SG head's `sg_lambda` / `sg_mu_spher` sit at the top level in both, so
 both directions are a renaming. Pure numpy and torch: no flax import.
 """
 
@@ -75,6 +76,21 @@ def init_trunk_params(rng, d_in, depth, width, skip, n_sigma, n_rgb, bias_std=0.
             ),
         }
     return params
+
+
+def init_sg_params(rng, n):
+    """The SG head's global parameters, seeded: sg_lambda = 1 [n] and
+    sg_mu_spher [n, 2] = (theta, phi) uniform in [0, pi) x [0, 2 pi), as
+    the JAX model initialises them. The JAX model draws them from a fixed
+    jax.random.PRNGKey(0), whose stream numpy cannot reproduce, so the two
+    packages start from other lobe directions; a checkpoint carries either
+    side's values across (utils/checkpoints.py)."""
+    theta = rng.random((n, 1)) * np.pi
+    phi = rng.random((n, 1)) * 2.0 * np.pi
+    return {
+        "sg_lambda": np.ones(n, np.float32),
+        "sg_mu_spher": np.concatenate([theta, phi], axis=-1).astype(np.float32),
+    }
 
 
 def trunk_weights(params, skip_layer, device=None, posenc=None, sh_dim=0):

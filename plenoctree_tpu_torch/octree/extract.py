@@ -1,7 +1,7 @@
 """NeRF -> PlenOctree extraction (library).
 
-Port of plenoctree_tpu/octree/extract.py for the SH and RGBA heads without
-view directions: auto_scale (shrink the bbox to the sigma support),
+Port of plenoctree_tpu/octree/extract.py for the SH, SG and RGBA heads
+without view directions: auto_scale (shrink the bbox to the sigma support),
 step1_build (dense grid evaluation, sigma or visibility-weight mask, tree
 build to init_grid_depth) and step2_fill (antialiased leaf fill: the mean of
 `samples_per_cell` jittered NeRF samples per leaf, alpha-weighted for RGBA
@@ -11,19 +11,32 @@ outputs, through the fused trunk kernel with --use_pallas on a GPU), and
 only sigma (step 0/1) or the per-leaf means (step 2) come back to the host.
 
 The jitter comes from np.random.default_rng(20200823), drawn chunk by chunk
-as the JAX package draws it, so both packages sample the same points.
+as the JAX package draws it, so both packages sample the same points. The
+chunks' draws and their arithmetic run on host threads a few chunks ahead
+of the device: each thread draws from a copy of the generator advanced to
+its chunk's first draw (PCG64.advance), so the stream is the sequential
+one.
 
-Not ported (raise NotImplementedError naming ROADMAP.md): use_viewdirs (the
-Monte-Carlo SH projection of a view-dependent NeRF, ops/sh_project.py) and
-SG trees.
+Not ported (raises NotImplementedError naming ROADMAP.md): use_viewdirs
+(the Monte-Carlo SH projection of a view-dependent NeRF, ops/sh_project.py).
 """
+
+import copy
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from plenoctree_tpu_torch.octree.grid_weight import calculate_grid_weights
 
-_POINT_CHUNK = 131072  # default points per device dispatch
+# Default points per device dispatch. Each dispatch is a host round trip
+# (the points copied in, the eager posenc, the trunk, a sync on the result
+# copied out), and at 2^17 points the H100 idled between them (extraction
+# step 2 at ~4 ms per 2^17 points against ~0.4 ms of trunk kernel); 2^20
+# points (12 MB in) amortize it. No value depends on the chunking: points
+# are evaluated row by row and a leaf's samples never straddle chunks.
+_POINT_CHUNK = 1 << 20
 
 
 def _point_chunk(cfg):
@@ -70,14 +83,30 @@ def _eval_sigma(points_fn, grid, chunk):
     return out
 
 
-def _check_supported(cfg, tree=None):
+def _check_supported(cfg):
     if cfg.use_viewdirs:
         raise NotImplementedError(
             "extraction with use_viewdirs (SH projection of a view-dependent NeRF) "
             "is not ported yet (ROADMAP.md)"
         )
-    if getattr(cfg, "sg_dim", -1) > 0 or (tree is not None and tree.data_format.format == "SG"):
-        raise NotImplementedError("extraction of SG trees is not ported yet (ROADMAP.md)")
+
+
+def sg_extra_data(sg_lambda, sg_mu_spher):
+    """The SG tree's extra_data [N, 4]: (softplus lambda, cartesian mu) in
+    f32, baked so the renderers need no activation (the JAX CLI's
+    np.logaddexp softplus and its sin/cos, in float64 then cast)."""
+    sg_lambda = np.asarray(sg_lambda)
+    sg_mu = np.asarray(sg_mu_spher)
+    lam = np.logaddexp(0.0, sg_lambda)
+    mu = np.stack(
+        [
+            np.sin(sg_mu[:, 0]) * np.cos(sg_mu[:, 1]),
+            np.sin(sg_mu[:, 0]) * np.sin(sg_mu[:, 1]),
+            np.cos(sg_mu[:, 0]),
+        ],
+        axis=-1,
+    )
+    return np.concatenate([lam[:, None], mu], axis=-1).astype(np.float32)
 
 
 def auto_scale(cfg, center, radius, points_fn):
@@ -138,11 +167,41 @@ def step1_build(cfg, tree, points_fn, dataset, device="cpu"):
     return tree
 
 
+def _jitter_chunks(tree, corner, size, S, chunk_size, rng):
+    """Yields (lo, hi, points [(hi - lo) * S, 3] f32 world coordinates) for
+    every chunk of leaves in order: the leaf's corner plus U[0, 1)^3 times
+    its size, the uniforms drawn from `rng` (a generator whose bit generator
+    has advance(), as default_rng's PCG64) in leaf order, float64, as one
+    sequential pass would draw them. The chunks are made on threads, a
+    window ahead, from copies of the generator advanced to their first
+    draw; `rng` ends where the sequential pass leaves it."""
+    n = corner.shape[0]
+    bounds = [(lo, min(lo + chunk_size, n)) for lo in range(0, n, chunk_size)]
+
+    def make_at(lo, hi):
+        bitgen = copy.deepcopy(rng.bit_generator)
+        bitgen.advance(lo * S * 3)  # one 64-bit draw per float64 uniform
+        u = np.random.Generator(bitgen).random((hi - lo, S, 3), dtype=np.float64)
+        t = corner[lo:hi, None, :] + u * size[lo:hi, None, None]
+        return tree.tree2world(t.astype(np.float32)).reshape(-1, 3)
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as pool:
+        pending = [pool.submit(make_at, lo, hi) for lo, hi in bounds[: 2 * workers]]
+        for i, (lo, hi) in enumerate(bounds):
+            points = pending[i].result()
+            pending[i] = None
+            if i + 2 * workers < len(bounds):
+                pending.append(pool.submit(make_at, *bounds[i + 2 * workers]))
+            yield lo, hi, points
+    rng.bit_generator.advance(n * S * 3)
+
+
 def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
     """Antialiased leaf fill of the leaves at the tree's full depth: the
     mean of samples_per_cell jittered samples per leaf (alpha-weighted
     colour for RGBA trees), reduced on `device`."""
-    _check_supported(cfg, tree)
+    _check_supported(cfg)
     print("* Step 2: AA", cfg.samples_per_cell)
     rng = rng or np.random.default_rng(20200823)
     S = cfg.samples_per_cell
@@ -158,11 +217,7 @@ def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
     chunk_size = max(1, _point_chunk(cfg) // S)
 
     with torch.no_grad():
-        for lo in range(0, sel.shape[0], chunk_size):
-            hi = min(lo + chunk_size, sel.shape[0])
-            u = rng.random((hi - lo, S, 3), dtype=np.float64)
-            t = corner[lo:hi, None, :] + u * size[lo:hi, None, None]
-            points = tree.tree2world(t.astype(np.float32)).reshape(-1, 3)
+        for lo, hi, points in _jitter_chunks(tree, corner, size, S, chunk_size, rng):
             rgb, sigma = points_fn(points)
             rgb = _as_tensor(rgb, device).reshape(hi - lo, S, -1)
             sigma = _as_tensor(sigma, device).reshape(hi - lo, S, 1)

@@ -5,7 +5,7 @@ the blender loader and the eval CLI read and write images through this
 module. `read_png` takes the 8-bit, non-interlaced greyscale, grey+alpha,
 RGB and RGBA files that Blender and PIL write, with any of the five row
 filters; it refuses other bit depths, palettes and interlacing. `write_png`
-writes 8-bit RGB or RGBA with no row filter.
+writes 8-bit greyscale, RGB or RGBA with no row filter.
 """
 
 import struct
@@ -89,14 +89,14 @@ def read_png(path):
 
 
 def write_png(path, u8):
-    """Write a uint8 array [H, W, 3] (RGB) or [H, W, 4] (RGBA) as an 8-bit
-    PNG with no row filter."""
+    """Write a uint8 array [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4]
+    (RGBA) as an 8-bit PNG with no row filter."""
     a = np.asarray(u8)
     if a.dtype != np.uint8:
         raise TypeError(f"write_png takes uint8 pixels, got {a.dtype}")
-    ctype = {3: 2, 4: 6}.get(a.shape[-1]) if a.ndim == 3 else None
+    ctype = {3: 2, 4: 6}.get(a.shape[-1]) if a.ndim == 3 else (0 if a.ndim == 2 else None)
     if ctype is None:
-        raise ValueError(f"write_png takes [H, W, 3] or [H, W, 4], got {a.shape}")
+        raise ValueError(f"write_png takes [H, W], [H, W, 3] or [H, W, 4], got {a.shape}")
     h, w = a.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)], axis=1)
 

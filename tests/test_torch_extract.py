@@ -123,6 +123,26 @@ def test_extraction_matches_jax(masking_mode):
     _assert_same_tree(trees[1], trees[0], atol=1e-5)
 
 
+@pytest.mark.parametrize("chunk_size", [1, 7, 64, 5000])
+def test_jitter_chunks_equal_one_sequential_draw(chunk_size):
+    """step2_fill's jitter, drawn on threads from advanced copies of the
+    PCG64 generator, equals the one sequential pass of the JAX package
+    (every chunk's points bit for bit), and leaves the generator where
+    that pass leaves it."""
+    tree = N3Tree(data_dim=4, depth_limit=2, radius=1.3, center=(0.1, 0, 0))
+    rng = np.random.default_rng(1)
+    corner, size = rng.random((1000, 3)), rng.random(1000)
+    gen, want_gen = np.random.default_rng(20200823), np.random.default_rng(20200823)
+    got = list(textract._jitter_chunks(tree, corner, size, 8, chunk_size, gen))
+    los = list(range(0, 1000, chunk_size))
+    assert [(lo, hi) for lo, hi, _ in got] == [(lo, min(lo + chunk_size, 1000)) for lo in los]
+    for lo, hi, points in got:
+        u = want_gen.random((hi - lo, 8, 3), dtype=np.float64)
+        t = corner[lo:hi, None, :] + u * size[lo:hi, None, None]
+        np.testing.assert_array_equal(points, tree.tree2world(t.astype(np.float32)).reshape(-1, 3))
+    assert gen.random() == want_gen.random()
+
+
 def test_autoscale_matches_jax():
     for kw in ({}, {"scale_alpha_thresh": 0.1}):
         want = jextract.auto_scale(_cfg(jconfig, **kw), [0.0] * 3, [2.5] * 3, jax_points_fn)
@@ -175,18 +195,19 @@ def test_port_n3tree_builds_like_jax():
 
 
 def test_viewdirs_and_sg_raise():
+    """use_viewdirs extraction still raises, in the library and the CLI; SG
+    trees are ported (tests/test_torch_sg.py): step2_fill fills an SG1 tree."""
     tree = N3Tree(data_dim=4, depth_limit=2, data_format="SH1")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         textract.step2_fill(_cfg(tconfig, use_viewdirs=True), tree, port_points_fn)
-    sg = N3Tree(data_dim=4, depth_limit=2, data_format="SG1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        textract.step2_fill(_cfg(tconfig), sg, port_points_fn)
+    sg = N3Tree(data_dim=4, depth_limit=2, data_format="SG1", extra_data=np.ones((1, 4)))
+    textract.step2_fill(_cfg(tconfig), sg, port_points_fn)
+    assert np.abs(sg.data).max() > 0
     from plenoctree_tpu_torch.cli import extract as cli
 
-    for flag in ("--use_viewdirs", "--sg_dim=4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(["--train_dir", "/nonexistent", "--dataset", "synthetic", flag,
-                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(["--train_dir", "/nonexistent", "--dataset", "synthetic", "--use_viewdirs",
+                  "--device", "cpu"])
 
 
 # A small f32 NeRF-SH (degree 1) without view directions, 4 x 32 trunks.

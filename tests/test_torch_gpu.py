@@ -144,6 +144,28 @@ def test_fused_trunk_matches_reference(n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 10000])
+def test_fused_trunk_sg25_head_matches_reference(n):
+    """The SG25 model's trunk (nerf_sh/config/misc/sg): a 1 + 75 column head,
+    which the kernels pad to the wgmma width 128 (the SH16 head takes 64)."""
+    _need_cuda()
+    flat, meta = _trunk(8, 256, 75, seed=n + 7)
+    assert meta["d_out"] == 76 and F._layout(meta).np == 128
+    x, _, gs, gr = _variant_inputs(n, n + 8, None, 0, 75)
+    s, r = F.fused_trunk(flat, x, meta)
+    grads = F.fused_trunk_bwd(flat, x, gs, gr, meta)
+    rs, rr = F.fused_trunk_reference(flat, x, meta)
+    assert r.shape == rr.shape == (n, 75)
+    assert float((s - rs).abs().max()) <= TRUNK_FWD_ATOL
+    assert float((r - rr).abs().max()) <= TRUNK_FWD_ATOL
+    ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta)
+    assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    _check_noise_floor(n, flat, x, gs, gr, meta, None, grads, ref)
+    again = F.fused_trunk_bwd(flat, x, gs, gr, meta)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
 def test_fused_trunk_autograd_on_cuda():
     _need_cuda()
     flat, meta = _trunk(6, 64, 12, seed=3)
@@ -330,6 +352,53 @@ def test_tile_bwd_kernel_matches_reference(depth, basis_dim, res, tile):
     assert torch.isfinite(got).all() and not got[:, :6].any() and not got[:, sr + 1 :].any()
     assert max(_group_errs(got, ref, sr).values()) <= BWD_RTOL
     assert max(_group_errs(again, got, sr).values()) <= BWD_RERUN_RTOL
+
+
+def _sg25_tree(depth):
+    """The scene tree with an SG25 payload (data_dim 76, fields 82 in the
+    soa): seeded amplitudes and lobes (softplus-ed lambda, unit mu)."""
+    from plenoctree_tpu_torch.octree.n3tree import DataFormat
+
+    tree = build_scene_tree(depth=depth, basis_dim=25, sh_noise=0.05, seed=2)
+    tree.data_format = DataFormat("SG25")
+    rng = np.random.default_rng(3)
+    mu = rng.normal(size=(25, 3))
+    mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+    tree.extra_data = np.concatenate([rng.uniform(0.5, 3.0, (25, 1)), mu], -1).astype(np.float32)
+    return tree
+
+
+@pytest.mark.gpu
+def test_sg25_tile_kernels_match_reference_on_a_tree():
+    """An SG25 tree through the tile optimizer's exact-mode inputs (bd 25,
+    82 rows padded to 88 fields, runrows 128, 256 rays per tile): both
+    kernels against their plain versions. The kernels stage the 82 rows
+    they read, not the padding: the backward then fits a block's shared
+    memory with 1,280 bytes to spare (231,168 of 232,448; the 88 padded
+    rows would need 237,312)."""
+    _need_cuda()
+    tree = _sg25_tree(4)
+    opt = TileOptimizer(tree, step_size=1e-4, grid_c=16, ccap=4096, device="cuda")
+    _, c2ws, focal = render_synthetic_scene("test", 1, 64, True, 2.0, 6.0)
+    r = opt.r
+    ti = r.make_tile_inputs_fn(64, 64, focal, r.rcap, 16, r.ccap)
+    p2 = ti(c2ws[0], r.index["csr"], r.index["base"], r.extra_data, r.index["blk_bbox"])[0]
+    soa, kw = opt.static_soa, opt._kw
+    assert (kw["basis_dim"], kw["sigma_row"], soa.shape[1], kw["runrows"]) == (25, 81, 88, 128)
+    smem = K.build().pn_tile_composite_bwd_smem_bytes(256, 25, 3, 82, 128, kw["quantum"])
+    assert smem == 231168 <= K._MAX_SMEM
+    for mode in (dict(kw, stop_thresh=1e-2, od_cap=-float(np.log(1e-2))),
+                 dict(kw, stop_thresh=0.0, od_cap=1e30)):
+        out = K.composite_tiles(*p2, soa, **mode)
+        assert float((out - K.composite_tiles_reference(*p2, soa, **mode)).abs().max()) <= ATOL
+    g = torch.tensor(np.random.default_rng(4).normal(size=out.shape), dtype=torch.float32,
+                     device="cuda")
+    got = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
+    ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw)
+    sr = kw["sigma_row"]
+    assert float(ref[:, 6:sr].abs().max()) > 0
+    assert torch.isfinite(got).all() and not got[:, :6].any() and not got[:, sr + 1 :].any()
+    assert max(_group_errs(got, ref, sr).values()) <= BWD_RTOL
 
 
 def _synthetic_tiles(tile, bd, nc, seed, runrows=128, quantum=128, n_tiles=5, n_pieces=11):

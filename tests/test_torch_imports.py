@@ -7,7 +7,9 @@ and restore, the conversion slice extracts a tree from that checkpoint and
 optimizes it through their CLIs (the tile optimizer and the march), the
 eval CLI evaluates it through the march, and jax stays unimported; with cv2
 blocked too, a blender-layout scene loads and the eval CLI writes its
-frames as PNG files."""
+frames as PNG files; and an SG model trains, the NeRF eval CLI evaluates
+it, it is extracted, a fleet of one SG task runs (its subprocesses under
+the same block, through a sitecustomize.py) and its tree compresses."""
 
 import json
 import os
@@ -249,3 +251,75 @@ def test_blender_scene_loads_and_evaluates_without_pil(tmp_path):
         np.testing.assert_array_equal(
             np.array(Image.open(tmp_path / "out" / f"{i:03d}.png")),
             read_png(tmp_path / "out" / f"{i:03d}.png"))
+
+
+_BLOCK = """import sys
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "cv2", "tensorboardX"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+"""
+
+_SG_SCRIPT = r"""
+import json, os, sys
+assert sys.modules["jax"] is None  # the sitecustomize block is in force
+import numpy as np
+from plenoctree_tpu_torch.cli import compress as compress_cli
+from plenoctree_tpu_torch.cli import eval as nerf_eval_cli
+from plenoctree_tpu_torch.cli import extract as extract_cli
+from plenoctree_tpu_torch.cli import task_manager
+from plenoctree_tpu_torch.cli import train as train_cli
+from plenoctree_tpu_torch.data.synthetic import write_blender_dataset
+from plenoctree_tpu_torch.octree import N3Tree
+from plenoctree_tpu_torch.utils.png import read_png
+
+root = sys.argv[1]
+scene = write_blender_dataset(root + "/data/scene", n_train=3, n_test=1, resolution=16)
+d = root + "/ckpt/sg"
+model = ["--config", "nerf_sh/config/misc/sg", "--sg_dim", "4", "--device", "cpu",
+         "--net_depth", "2", "--net_width", "16", "--num_coarse_samples", "4",
+         "--num_fine_samples", "4", "--chunk", "512", "--data_dir", scene, "--train_dir", d]
+_, state = train_cli.main(model + ["--use_pallas", "--compute_dtype", "bfloat16",
+                                   "--batch_size", "32", "--max_steps", "2", "--save_every", "2",
+                                   "--render_every", "0", "--sparsity_npoints", "50"])
+assert state.step == 2 and state.params["sg_mu_spher"].shape == (4, 2)
+psnr, ssim = nerf_eval_cli.main(model)
+assert psnr == psnr and ssim == ssim and read_png(d + "/test_preds/disp_000.png").shape == (16, 16, 1)
+tree = extract_cli.main(model + ["--output", d + "/tree.npz", "--init_grid_depth", "3",
+                                 "--samples_per_cell", "2", "--noeval"])
+assert repr(tree.data_format) == "SG4" and N3Tree.load(d + "/tree.npz").extra_data.shape == (4, 4)
+with open(root + "/tasks.json", "w") as f:
+    json.dump({"data_root": root + "/data", "train_root": root + "/ckpt", "tasks": [{
+        "train_dir": "sg", "data_dir": "scene", "config": "nerf_sh/config/misc/sg",
+        "extr_flags": model[2:-4] + ["--init_grid_depth", "3", "--samples_per_cell", "2"],
+        "opt_flags": model[2:-4] + ["--num_epochs", "1", "--sgd", "--lr", "1e9"],
+        "eval_flags": model[2:-4]}]}, f)
+task_manager.main([root + "/tasks.json", "--gpus", "0"])
+with open(root + "/results.txt") as f:
+    res = json.loads(f.read())
+assert "error" not in res and res["raw_psnr"] == res["raw_psnr"], res
+compress_cli.main([d + "/octrees/tree.npz", "--out_dir", root + "/min", "--bits", "6"])
+qc = np.load(root + "/min/tree.npz")["quant_colors"]
+assert qc.shape[0] == 4 and 0 < qc.shape[1] <= 64, qc.shape
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu", "PIL")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_sg_eval_fleet_and_compression_without_jax_stack(tmp_path):
+    """SG training (through the fused trunk's plain version), the NeRF eval
+    CLI, SG extraction and compression in one process, and the fleet's
+    extract / optimize / evaluate subprocesses, all with the JAX stack,
+    PIL, imageio and cv2 blocked by a sitecustomize.py on PYTHONPATH."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCK)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(site), REPO, env.get("PYTHONPATH", "")])
+    res = subprocess.run(
+        [sys.executable, "-c", _SG_SCRIPT, str(tmp_path / "run")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    assert res.stdout.strip().endswith("OK")

@@ -237,9 +237,15 @@ def test_nerf_call(dtype, monkeypatch):
 
 
 def test_unported_heads_raise():
-    for over in ({"use_viewdirs": True, "sh_deg": -1}, {"sg_dim": 4, "sh_deg": -1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NerfModel(tconfig.default_config(**dict(BASE, **over)))
+    """The view-conditioned head still raises; the SG head is ported (its
+    parity is tests/test_torch_sg.py) and builds; SH and SG together are
+    refused, as the JAX package asserts."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NerfModel(tconfig.default_config(**dict(BASE, use_viewdirs=True, sh_deg=-1)))
+    model = NerfModel(tconfig.default_config(**dict(BASE, sg_dim=4, sh_deg=-1)))
+    assert model.sg_mu_spher.shape == (4, 2)
+    with pytest.raises(ValueError, match="up to one of"):
+        NerfModel(tconfig.default_config(**dict(BASE, sg_dim=4)))
 
 
 # ---------------------------------------------------------------- loss, Adam
