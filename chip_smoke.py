@@ -277,10 +277,14 @@ MARCH_STEP_RANGES = {"march": "pn_march", "shade": "pn_shade", "update": "pn_upd
 SG_CONFIG = "nerf_sh/config/misc/sg"
 TRAINED_MODEL_FLAGS = ["--use_pallas", "--compute_dtype", "bfloat16"]
 FLEET_EPOCHS = 2  # of the published 80, as phase 13 is cut
-# The fleet's views, 12 train / 4 test / 4 val of the synthetic scene. The
-# extraction's visibility mask keeps more leaves the more rays it casts: at
-# 200x200 14.1M (SH16) and 14.9M (SG25) leaves at depth 8, the fleet alone
-# 1044 s; at 64x64 7.1M and 7.7M, 449 s (my chip runs, PR 7).
+# The fleet's views, 12 train / 4 test / 4 val of the synthetic scene, cut
+# from the published 800x800. The extraction's visibility mask keeps more
+# leaves the more rays it casts, and every stage does more work: with
+# 2^20-point dispatches (python -m plenoctree_tpu_torch.bench_fleet, H100
+# 80GB HBM3, 700 W) the fleet took 216 s at 48x48 (4.9M / 5.3M leaves at
+# depth 8) and 282 s at 64x64 (7.1M / 7.7M), and compressing its trees
+# 147 s and 241 s. The rest of the smoke takes ~640 s on a slower host:
+# 64x64 would take it past 1200 s, and 48x48 may.
 FLEET_RES = 32
 # The decoded 16-bit SG25 tree's frame against the uncompressed tree's:
 # the compressor zeroes every voxel with sigma <= 2 (a thin fog over a
@@ -551,17 +555,18 @@ def trunk_library(flat, x, gs, gr, meta, basis=None):
 
 def tile_work(p2, soa, sigma_row, quantum, extra_bytes):
     """(bytes, flops) a tile kernel needs on these phase-1 inputs: every
-    input tensor once, each soa block the pieces name once, plus
-    extra_bytes (outputs); flops: the slab test (6 FMAs) of every live
-    sigma > 0 row of every piece against the rays of the piece's quad
-    groups."""
+    input tensor once, the first sigma_row + 1 rows of each soa block the
+    pieces name once (the rows a kernel reads; the soa's fields past
+    sigma_row are padding), plus extra_bytes (outputs); flops: the slab
+    test (6 FMAs) of every live sigma > 0 row of every piece against the
+    rays of the piece's quad groups."""
     meta, c0, lo, hi, mask = (t[:, 0] for t in p2[:5])
     rays = p2[5].shape[1]
     valid = torch.arange(c0.shape[-1], device=c0.device)[None] < meta[:, :1]
     c0, lo, hi, mask = c0[valid].long(), lo[valid], hi[valid], mask[valid]
     blocks = c0 // quantum
     nbytes = sum(t.numel() * t.element_size() for t in p2) + extra_bytes
-    nbytes += torch.unique(blocks).numel() * soa.shape[1] * quantum * soa.element_size()
+    nbytes += torch.unique(blocks).numel() * (sigma_row + 1) * quantum * soa.element_size()
     pairs = 0
     for i in range(0, c0.numel(), 1 << 16):
         sl = slice(i, i + (1 << 16))
@@ -857,8 +862,10 @@ def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
     ms_k = cuda_ms(lambda: K.composite_tiles_bwd(*p2, soa, out, g, **kw), 5)
     ms_p = cuda_ms(lambda: K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw), 1)
     ms_f = cuda_ms(fwd, 5)
-    nbytes, flops = tile_work(p2, soa, sr, opt.r.quantum,
-                              out.numel() * 4 * 2 + soa.numel() * soa.element_size())
+    # The backward also reads `out` and `g` and writes the gradient soa's
+    # non-padding rows (sigma_row + 1 per block).
+    gsoa_bytes = soa.shape[0] * (sr + 1) * opt.r.quantum * soa.element_size()
+    nbytes, flops = tile_work(p2, soa, sr, opt.r.quantum, out.numel() * 4 * 2 + gsoa_bytes)
     bound_ms, bound_by = bound_of(nbytes, flops, F32_FLOPS)
     fwd_bound = bound_of(*tile_work(p2, soa, sr, opt.r.quantum, out.numel() * 4), F32_FLOPS)
     pieces = p2[0][:, 0, 0]
@@ -1451,77 +1458,31 @@ def nerf_eval_main_path(sh_dir, sg_dir):
 def fleet_main_path(sh_dir, sg_dir):
     """Phase 21: `python -m plenoctree_tpu_torch.cli.task_manager tasks.json
     --gpus "0"` as a subprocess, on a task file with two tasks in the form of
-    octree/config/syn_sh16.json and syn_sg25.json (their configs and
-    published extr/opt/eval flags, --num_epochs 80 -> FLEET_EPOCHS, plus
-    the model flags the checkpoints were trained with) on phase 8's and
-    phase 19's checkpoints and the synthetic scene written as a blender
-    scene at FLEET_RES (12 train, 4 test, 4 val views): rc 0, one
-    results.txt line per task without error and with finite PSNRs, and the
-    wall-clock of each stage (from the worker's stage lines). Returns
+    octree/config/syn_sh16.json and syn_sg25.json (bench_fleet.fleet_tasks:
+    their configs and published extr/opt/eval flags, --num_epochs 80 ->
+    FLEET_EPOCHS, plus the model flags the checkpoints were trained with)
+    on phase 8's and phase 19's checkpoints and the synthetic scene written
+    as a blender scene at FLEET_RES (12 train, 4 test, 4 val views): rc 0,
+    one results.txt line per task without error and with finite PSNRs, and
+    the wall-clock of each stage (from the worker's stage lines). Returns
     {name: the tree the fleet evaluated}."""
+    from plenoctree_tpu_torch import bench_fleet
     from plenoctree_tpu_torch.data.synthetic import write_blender_dataset
 
     t0 = time.time()
+    scene = os.path.join(ROOT, "build", "smoke", "fleet_scene")
+    write_blender_dataset(scene, 12, 4, FLEET_RES)
     fleet_dir = os.path.join(ROOT, "build", "smoke", "fleet")
-    os.makedirs(fleet_dir, exist_ok=True)
-    write_blender_dataset(os.path.join(ROOT, "build", "smoke", "fleet_scene"), 12, 4, FLEET_RES)
-    results_path = os.path.join(fleet_dir, "results.txt")
-    if os.path.exists(results_path):
-        os.remove(results_path)
-    tasks = []
-    for name, train_dir in (("syn_sh16.json", sh_dir), ("syn_sg25.json", sg_dir)):
-        with open(os.path.join(ROOT, "octree", "config", name)) as f:
-            task = json.load(f)["scene_tasks"][0]
-        opt = task["opt_flags"]
-        i = opt.index("--num_epochs")
-        tasks.append(dict(
-            task, train_dir=os.path.basename(train_dir), data_dir="fleet_scene",
-            extr_flags=task["extr_flags"] + TRAINED_MODEL_FLAGS,
-            opt_flags=opt[:i] + ["--num_epochs", str(FLEET_EPOCHS)] + opt[i + 2:]
-            + TRAINED_MODEL_FLAGS,
-            eval_flags=task["eval_flags"] + TRAINED_MODEL_FLAGS,
-        ))
-    task_file = os.path.join(fleet_dir, "tasks.json")
-    with open(task_file, "w") as f:
-        json.dump({"data_root": os.path.join(ROOT, "build", "smoke"),
-                   "train_root": os.path.join(ROOT, "build", "smoke"), "tasks": tasks}, f, indent=1)
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    marks = []  # (seconds since start, stage line)
-    with open(os.path.join(fleet_dir, "fleet.log"), "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "plenoctree_tpu_torch.cli.task_manager", task_file,
-             "--gpus", "0"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, bufsize=1,
-        )
-        for line in proc.stdout:
-            log.write(line)
-            if line.startswith("[worker]"):
-                marks.append((time.time() - t0, line))
-        rc = proc.wait()
-    stages = {}  # task -> {stage: s}
-    for (t_a, a), (t_b, _) in zip(marks, marks[1:]):
-        if a.startswith("[worker] done"):
-            continue
-        stage = a.split("plenoctree_tpu_torch.cli.")[1].split()[0]
-        scene = a.split("--train_dir ")[1].split()[0]
-        stages.setdefault(os.path.basename(scene), {})[stage] = round(t_b - t_a, 2)
-    lines = []
-    if os.path.exists(results_path):
-        with open(results_path) as f:
-            lines = [json.loads(x) for x in f.read().splitlines() if x.strip()]
-    phase("fleet main path", t0, rc=rc, tasks=len(tasks), epochs=FLEET_EPOCHS,
+    tasks = bench_fleet.fleet_tasks(sh_dir, sg_dir, scene, FLEET_EPOCHS)
+    rc, stages, lines, _ = bench_fleet.run_fleet(tasks, fleet_dir)
+    phase("fleet main path", t0, rc=rc, tasks=len(tasks), epochs=FLEET_EPOCHS, views=FLEET_RES,
           stage_wall_s=json.dumps(stages),
           results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]))
     if rc != 0 or len(lines) != 2 or any("error" in r for r in lines):
         raise RuntimeError(f"the fleet failed: rc {rc}, results {lines} (see {fleet_dir}/fleet.log)")
     if not all(math.isfinite(r["raw_psnr"]) and math.isfinite(r["psnr"]) for r in lines):
         raise RuntimeError(f"non-finite fleet PSNRs: {lines}")
-    trees = {}
-    for name, r in zip(("SH16", "SG25"), lines):
-        octrees = os.path.join(r["scene"], "octrees")
-        best = os.path.join(octrees, "tree_opt.npz")
-        trees[name] = best if os.path.exists(best) else os.path.join(octrees, "tree.npz")
-    return trees
+    return bench_fleet.fleet_trees(lines)
 
 
 def fleet_tree_march(tree_path):

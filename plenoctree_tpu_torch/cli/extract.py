@@ -110,7 +110,7 @@ def main(argv=None):
 
     points_fn = extract_lib.make_points_fn(model, device)
     if cfg.autoscale:
-        center, radius = extract_lib.auto_scale(cfg, center, radius, points_fn)
+        center, radius = extract_lib.auto_scale(cfg, center, radius, points_fn, device)
         print("Autoscale result center", center, "radius", radius)
 
     radius = [r * cfg.bbox_scale for r in radius]

@@ -945,8 +945,9 @@ int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo,
                       int runrows, int quantum, float step_eps, float stop_thresh, float od_cap,
                       int sigmoid, void* stream) {
   if (n_tiles == 0) return 0;
+  // The piece is staged up to sigma_row, and the colour rows lie below it.
   if (!tiles_ok(rays, runrows, quantum, fields) || n_channels < 1 || n_channels > kMaxChannels ||
-      sigma_row < 6 || sigma_row >= fields)
+      sigma_row != 6 + n_channels * basis_dim || sigma_row >= fields)
     return (int)cudaErrorInvalidValue;
   int sub, threads;
   geometry(rays, &sub, &threads);

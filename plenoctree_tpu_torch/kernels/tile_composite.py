@@ -99,7 +99,7 @@ def _raise_on(lib, rc, what):
         )
 
 
-def _check_args(args, soa, basis_dim, n_channels, runrows, quantum):
+def _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum):
     (meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis) = args
     dev = soa.device
     T, rays = o.shape[0], o.shape[1]
@@ -139,6 +139,12 @@ def _check_args(args, soa, basis_dim, n_channels, runrows, quantum):
         raise ValueError(f"n_channels must be in [1, {_MAX_CHANNELS}], got {n_channels}")
     if soa.shape[1] < 6 + n_channels * basis_dim + 1:
         raise ValueError(f"soa has {soa.shape[1]} fields, too few for the data layout")
+    # The kernels stage the first sigma_row + 1 rows of each piece and read
+    # the colour rows below sigma_row.
+    if sigma_row != 6 + n_channels * basis_dim:
+        raise ValueError(
+            f"sigma_row must follow the colour rows (6 + {n_channels} * {basis_dim}), got {sigma_row}"
+        )
     if soa.data_ptr() % 16:
         raise ValueError("soa must start on a 16-byte boundary (its blocks are bulk-copied)")
 
@@ -165,7 +171,7 @@ def composite_tiles(
         return composite_tiles_reference(*args, soa, **kw)
     if soa.device.type != "cuda":
         raise ValueError(f"composite_tiles: unsupported device {soa.device}")
-    _check_args(args, soa, basis_dim, n_channels, runrows, quantum)
+    _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
     out = _launch_fwd(build(), args, soa, **kw)
     launches += 1
     return out
@@ -351,7 +357,7 @@ def composite_tiles_bwd(
         return composite_tiles_bwd_reference(*args, soa, out, g, **kw)
     if soa.device.type != "cuda":
         raise ValueError(f"composite_tiles_bwd: unsupported device {soa.device}")
-    _check_args(args, soa, basis_dim, n_channels, runrows, quantum)
+    _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
     T, rays = o.shape[0], o.shape[1]
     for name, t in (("out", out), ("g", g)):
         if t.device != soa.device or t.dtype != torch.float32 or tuple(t.shape) != (T, rays, 8):
@@ -361,10 +367,6 @@ def composite_tiles_bwd(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sigma_row != 6 + n_channels * basis_dim:
-        raise ValueError(
-            f"sigma_row must follow the colour rows (6 + {n_channels} * {basis_dim}), got {sigma_row}"
-        )
     if basis_dim > _MAX_BWD_BASIS or runrows > _MAX_BWD_RUNROWS:
         raise ValueError(
             f"the CUDA tile backward takes basis_dim up to {_MAX_BWD_BASIS} and runrows up to "

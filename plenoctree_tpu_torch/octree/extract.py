@@ -15,7 +15,10 @@ as the JAX package draws it, so both packages sample the same points. The
 chunks' draws and their arithmetic run on host threads a few chunks ahead
 of the device: each thread draws from a copy of the generator advanced to
 its chunk's first draw (PCG64.advance), so the stream is the sequential
-one.
+one. Drawn on the calling thread, the jitter held step 2 up: 60.4 s
+against 11.2 s on threads at init_grid_depth 7 and 256 samples per leaf
+(`python -m plenoctree_tpu_torch.bench_fleet --step2_ab`, NVIDIA H100 80GB
+HBM3, 700 W).
 
 Not ported (raises NotImplementedError naming ROADMAP.md): use_viewdirs
 (the Monte-Carlo SH projection of a view-dependent NeRF, ops/sh_project.py).
@@ -30,17 +33,18 @@ import torch
 
 from plenoctree_tpu_torch.octree.grid_weight import calculate_grid_weights
 
-# Default points per device dispatch. Each dispatch is a host round trip
-# (the points copied in, the eager posenc, the trunk, a sync on the result
-# copied out), and at 2^17 points the H100 idled between them (extraction
-# step 2 at ~4 ms per 2^17 points against ~0.4 ms of trunk kernel); 2^20
-# points (12 MB in) amortize it. No value depends on the chunking: points
-# are evaluated row by row and a leaf's samples never straddle chunks.
-_POINT_CHUNK = 1 << 20
+# Default points per device dispatch: 2^20 on a GPU (12 MB in; each
+# dispatch is a host round trip: the points copied in, the eager posenc,
+# the trunk, a sync on the result copied out), the JAX package's 2^17 on
+# the CPU, where a full-width trunk's activations then take 128 MB a layer.
+# No value depends on the chunking: points are evaluated row by row and a
+# leaf's samples never straddle chunks.
+_POINT_CHUNK = {"cuda": 1 << 20, "cpu": 1 << 17}
 
 
-def _point_chunk(cfg):
-    return max(int(getattr(cfg, "point_chunk", 0) or 0), 0) or max(cfg.chunk, _POINT_CHUNK)
+def _point_chunk(cfg, device):
+    default = _POINT_CHUNK["cuda" if torch.device(device).type == "cuda" else "cpu"]
+    return max(int(getattr(cfg, "point_chunk", 0) or 0), 0) or max(cfg.chunk, default)
 
 
 def _grid_points(reso, offset, invradius, z_min=None, z_max=None):
@@ -109,8 +113,9 @@ def sg_extra_data(sg_lambda, sg_mu_spher):
     return np.concatenate([lam[:, None], mu], axis=-1).astype(np.float32)
 
 
-def auto_scale(cfg, center, radius, points_fn):
-    """Shrink the bbox to the sigma support (parity: extraction.py:244-286)."""
+def auto_scale(cfg, center, radius, points_fn, device="cpu"):
+    """Shrink the bbox to the sigma support (parity: extraction.py:244-286);
+    `device` is where points_fn evaluates (it sizes the dispatches)."""
     print("* Step 0: Auto scale")
     reso = 2**cfg.init_grid_depth
     radius = np.asarray(radius, np.float32)
@@ -119,7 +124,7 @@ def auto_scale(cfg, center, radius, points_fn):
     offset = 0.5 * (1.0 - center / radius)
     grid = _grid_points(reso, offset, scale, cfg.z_min, cfg.z_max)
 
-    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg))
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device))
     approx_delta = 2.0 / reso
     sigma_thresh = -np.log(1.0 - cfg.scale_alpha_thresh) / approx_delta
     grid = grid[sigmas >= sigma_thresh]
@@ -139,7 +144,7 @@ def step1_build(cfg, tree, points_fn, dataset, device="cpu"):
     grid = _grid_points(reso, tree.offset, tree.invradius, cfg.z_min, cfg.z_max)
     print("  init grid", grid.shape)
 
-    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg))
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device))
     approx_delta = 2.0 / reso
     sigma_thresh = -np.log(1.0 - cfg.alpha_thresh) / approx_delta
 
@@ -214,7 +219,7 @@ def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
     sel = leaves_all[depth_all == tree.max_depth]
     corner = tree._cell_corner(sel).astype(np.float64)
     size = tree._cell_size(sel).astype(np.float64)
-    chunk_size = max(1, _point_chunk(cfg) // S)
+    chunk_size = max(1, _point_chunk(cfg, device) // S)
 
     with torch.no_grad():
         for lo, hi, points in _jitter_chunks(tree, corner, size, S, chunk_size, rng):

@@ -1,39 +1,16 @@
 """Median-cut palette quantization for octree compression (host numpy).
 
 Port of plenoctree_tpu/octree/quantize.py, numpy only (the port has no
-native library): `quantize_median_cut` gives the JAX package's numpy
-median cut bit for bit, and `compress_tree_npz` writes the same npz keys
-(quant_colors, quant_map, sigma, data_retained).
-
-The median cut splits every box at each of `bits` levels along its own
-longest axis, the lower half being the first ceil(n/2) of its points in
-(value, index) order. The JAX package sorts every level with a lexsort of
-(box, value); here each channel's points are ranked once by (value,
-index), so a level's sort is one np.sort of int64 keys box << b | rank,
-and the points stay grouped by box between levels, so the per-box extents
-are segment reductions. The palette is the weighted mean of each box,
-summed in float64 in point order as np.add.at sums it.
+native library): `quantize_median_cut` is the JAX package's numpy k-d
+median cut (all boxes split at once per level, each along its own longest
+axis at its median; one lexsort per level), and `compress_tree_npz` writes
+the same npz keys (quant_colors, quant_map, sigma, data_retained).
 """
 
 import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-
-
-def _order(values, rows):
-    """np.argsort(values, kind="stable") for float32 values (ties, -0 and +0
-    among them, by index; NaNs last), as one np.sort of the int64 keys
-    (order-preserving bits << 32 | index, unsigned)."""
-    if rows.size > 1 << 31:
-        return np.argsort(values, kind="stable")
-    v = values + np.float32(0.0)  # -0 -> +0
-    v[np.isnan(v)] = np.nan  # one NaN pattern, after +inf
-    bits = v.view(np.uint32)
-    bits = np.where(bits >> 31, ~bits, bits | np.uint32(1 << 31)).astype(np.uint64)
-    keys = (bits << np.uint64(32)) | rows.astype(np.uint64)
-    keys.sort()
-    return (keys & np.uint64((1 << 32) - 1)).astype(np.int64)
 
 
 def quantize_median_cut(colors, weights=None, bits=16):
@@ -49,49 +26,44 @@ def quantize_median_cut(colors, weights=None, bits=16):
       color_id_map: [M] uint32 palette index per input color.
     """
     colors = np.asarray(colors, np.float32)
-    m, nc = colors.shape
+    m = colors.shape[0]
     if m == 0:
-        return np.zeros((0, nc), np.float32), np.zeros((0,), np.uint32)
+        return np.zeros((0, colors.shape[1]), np.float32), np.zeros((0,), np.uint32)
     if weights is None or len(weights) == 0:
         weights = np.ones(m, np.float32)
     weights = np.asarray(weights, np.float32)
+
+    box = np.zeros(m, np.int64)  # box id per point
+    # Don't split further than the number of points allows.
     levels = min(bits, max(int(np.ceil(np.log2(max(m, 2)))), 1))
-
-    cols = np.ascontiguousarray(colors.T)  # [C, M]
-    rows = np.arange(m, dtype=np.int64)
-    # perm[c]: the points in (colors[:, c], index) order, as a stable argsort
-    # orders them; rank[c] its inverse. Flat, for np.take.
-    perm = np.concatenate([_order(cols[c], rows) for c in range(nc)])
-    rank = np.empty(nc * m, np.int64)
-    for c in range(nc):
-        rank[c * m + perm[c * m : (c + 1) * m]] = rows
-    shift = max(int(m - 1).bit_length(), 1)
-    low = (np.int64(1) << shift) - 1
-
-    pts = rows.copy()  # the points grouped by box, boxes in id order
-    box = np.zeros(m, np.int64)  # box id at each position (nondecreasing)
     for _ in range(levels):
-        starts = np.flatnonzero(np.r_[True, box[1:] != box[:-1]])
-        counts = np.diff(np.r_[starts, m])
-        seg = np.repeat(np.arange(starts.size), counts)
-        extent = np.empty((starts.size, nc), np.float32)
-        for c in range(nc):
-            vals = np.take(cols[c], pts)
-            extent[:, c] = np.maximum.reduceat(vals, starts) - np.minimum.reduceat(vals, starts)
-        base = np.argmax(extent, axis=1)[seg] * m  # each position's box's axis, times M
-        keys = (box << shift) | np.take(rank, base + pts)
-        keys.sort()  # within each box by (value on its axis, index)
-        pts = np.take(perm, base + (keys & low))
-        upper = (rows - starts[seg]) >= ((counts + 1) // 2)[seg]
-        box = box * 2 + upper
+        # Longest axis per box: segment min/max over points.
+        n_boxes = int(box.max()) + 1
+        mins = np.full((n_boxes, colors.shape[1]), np.inf, np.float32)
+        maxs = np.full((n_boxes, colors.shape[1]), -np.inf, np.float32)
+        np.minimum.at(mins, box, colors)
+        np.maximum.at(maxs, box, colors)
+        axis = np.argmax(maxs - mins, axis=1)  # [n_boxes]
+        key = colors[np.arange(m), axis[box]]
+        order = np.lexsort((key, box))
+        # Rank of each point within its box; the upper half of each box
+        # (rank >= ceil(n / 2)) becomes box * 2 + 1.
+        sorted_box = box[order]
+        box_start = np.r_[0, np.nonzero(np.diff(sorted_box))[0] + 1]
+        counts = np.diff(np.r_[box_start, m])
+        rank = np.arange(m) - np.repeat(box_start, counts)
+        upper = rank >= np.repeat((counts + 1) // 2, counts)
+        new_box = np.empty(m, np.int64)
+        new_box[order] = sorted_box * 2 + upper
+        box = new_box
 
-    starts = np.flatnonzero(np.r_[True, box[1:] != box[:-1]])
-    dense = np.empty(m, np.int64)
-    dense[pts] = np.repeat(np.arange(starts.size), np.diff(np.r_[starts, m]))
-    p = starts.size
-    weighted = colors * weights[:, None]
-    wsum = np.bincount(dense, weights=weights, minlength=p)
-    csum = np.stack([np.bincount(dense, weights=weighted[:, c], minlength=p) for c in range(nc)], 1)
+    # Dense palette ids + weighted mean colors.
+    uniq, dense = np.unique(box, return_inverse=True)
+    p = uniq.size
+    wsum = np.zeros(p, np.float64)
+    csum = np.zeros((p, colors.shape[1]), np.float64)
+    np.add.at(wsum, dense, weights)
+    np.add.at(csum, dense, colors * weights[:, None])
     palette = (csum / np.maximum(wsum, 1e-12)[:, None]).astype(np.float32)
     return palette, dense.astype(np.uint32)
 

@@ -135,7 +135,8 @@ _flag("scale_alpha_thresh", 0.01, "alpha threshold during autoscale")
 _flag(
     "point_chunk",
     0,
-    "points per extraction device dispatch (0 = auto: max(chunk, 131072))",
+    "points per extraction device dispatch (0 = auto: max(chunk, 2^20) on a GPU, "
+    "max(chunk, 2^17) on the CPU)",
 )
 
 # Profiling

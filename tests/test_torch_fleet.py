@@ -116,3 +116,24 @@ def test_fleet_runs_sh_and_sg_tasks(tmp_path):
     sg = np.load(os.path.join(out_dir, "sg", "tree.npz"))
     assert sh["quant_colors"].shape[0] == 4 and sg["quant_colors"].shape[0] == 4
     assert sg["extra_data"].shape == (4, 4) and str(sg["data_format"]) == "SG4"
+
+
+def test_bench_fleet_tasks_keep_published_flags():
+    """The fleet that chip_smoke.py and bench_fleet.py drive: each published
+    task's config and extr/opt/eval flags, only --num_epochs replaced, the
+    trained model's flags appended, and the checkpoints and views given."""
+    from plenoctree_tpu_torch import bench_fleet
+
+    tasks = bench_fleet.fleet_tasks("/ckpt/sh", "/ckpt/sg", "/views", 2)
+    extra = bench_fleet.TRAINED_MODEL_FLAGS
+    dirs = ("/ckpt/sh", "/ckpt/sg")
+    for task, name, train_dir in zip(tasks, ("syn_sh16.json", "syn_sg25.json"), dirs):
+        want = _spec(name)["scene_tasks"][0]
+        assert task["config"] == want["config"]
+        assert (task["train_dir"], task["data_dir"]) == (train_dir, "/views")
+        assert task["extr_flags"] == want["extr_flags"] + extra
+        assert task["eval_flags"] == want["eval_flags"] + extra
+        i = want["opt_flags"].index("--num_epochs")
+        assert task["opt_flags"][i + 1] == "2" and want["opt_flags"][i + 1] == "80"
+        assert task["opt_flags"][:i + 1] + task["opt_flags"][i + 2:] == (
+            want["opt_flags"][:i + 1] + want["opt_flags"][i + 2:] + extra)

@@ -95,6 +95,14 @@ def test_wrapper_rejects_bad_inputs():
         K.composite_tiles(*p2[:5], p2[5].double(), *p2[6:], r.index["soa"], **r._kernel_kw)
     with pytest.raises(ValueError):
         K.composite_tiles(*p2[:5], p2[5].cpu(), *p2[6:], r.index["soa"], **r._kernel_kw)
+    # A sigma_row off the data layout: the wrapper refuses it, and so does
+    # the C entry (past the wrapper), since the kernel stages each piece only
+    # up to sigma_row.
+    kw = dict(r._kernel_kw, sigma_row=r._kernel_kw["sigma_row"] - 1)
+    with pytest.raises(ValueError):
+        K.composite_tiles(*p2, r.index["soa"], **kw)
+    with pytest.raises(RuntimeError):
+        K._launch_fwd(K.build(), tuple(p2), r.index["soa"], **kw)
 
 
 def _trunk(depth, width, n_rgb, seed, device="cuda", posenc=None, sh_dim=0):
