@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving,
 NeRF-SH training, PlenOctree conversion (extraction, tile optimization),
-the gather probes, the exact march (evaluation and optimization), and the
-SG head, the NeRF eval, the conversion fleet and compression.
+the gather probes, the exact march (evaluation and optimization), the SG
+head, the NeRF eval, the conversion fleet and compression, and real-capture
+layouts: NSVF (octree/config/tt_sh25.json), LLFF with NDC serving, and the
+view-conditioned head with extraction by SH projection.
 
     python3 chip_smoke.py
 
@@ -47,7 +49,7 @@ Phases, one line each with its wall time:
   9. extract main path: the extract CLI (`plenoctree_tpu_torch.cli.extract`)
      in-process on phase 8's checkpoint_200 with the same model flags and
      octree/config/syn_sh16.json's extraction flags, cut to init_grid_depth
-     7 (phase 21 extracts the same checkpoint at 8, and its tree takes the
+     6 (phase 21 extracts the same checkpoint at 8, and its tree takes the
      budgeted accel grid check);
      the trunk forward kernel's launch count must be > 0 and the tree must
      save and reload; leaf count, eval PSNR (through the exact march, the
@@ -131,7 +133,37 @@ Phases, one line each with its wall time:
      decoded here and rendered at 800x800 through the march, within
      COMPRESS_MIN_PSNR of the uncompressed tree's frame and
      COMPRESS_PALETTE_MIN_PSNR of the frame of the uncompressed tree with
-     the same sigma cut.
+     the same sigma cut;
+ 24. NDC tile kernel vs plain (run right after phase 6, on its index): the
+     depth-7 serving tree read as an NDC volume (make_ndc_config at
+     800x800, focal NDC_FOCAL), a forward-facing pose's tile inputs (per-ray
+     origins, segment-endpoint AABB group masks) through the tile kernel
+     against composite_tiles_reference (KERNEL_ATOL), both times, the bound,
+     the share of valid pieces whose mask is below 15; then an
+     N_NDC_ORBIT-pose forward-facing orbit at 800x800, median ms/frame;
+ 25. T&T train main path: an NSVF-layout scene written by the port's writer
+     (TT_VIEWS at FLEET_RES), the train CLI on nerf_sh/config/tt (SH25,
+     batch 1024, 64 + 128 samples) with the fused kernels for 200 steps:
+     both trunk kernels on the 1 + 75 head, PSNR rising, checkpoint_200
+     restoring with equal params (phase 7 holds the SH25 head, raw and
+     decoded in-kernel against a degree-4 basis, at 786,432 rows);
+ 26. T&T fleet main path: the task manager as a subprocess on
+     octree/config/tt_sh25.json as it stands ({%} scenes, --bbox_from_data,
+     --split_train) cut to one scene and TT_EPOCHS of 40 epochs, with the
+     trained model's flags: rc 0, a results.txt line without error, finite
+     PSNRs, each stage's wall-clock, the bbox-derived centre and radius;
+ 27. LLFF NDC main path: an LLFF capture written by the port's writer
+     (LLFF_VIEWS at LLFF_RES) and a config with llff in its path; the train
+     CLI for 200 steps with the fused kernels; the extract CLI (--center
+     "0 0 0" --radius 1.05, init_grid_depth LLFF_DEPTH), the optimize CLI
+     (the march, no tile launch), the evaluate CLI exact and --fast_eval
+     (tile launches > 0), the NDC tile frame against the NDC march frame of
+     a test pose (NDC_MIN_PSNR), and the NeRF eval CLI's --render_path
+     (path_renders/, 120 poses);
+ 28. view-conditioned path: the train CLI on nerf_sh/config/misc/proj
+     (use_viewdirs, the plain path: no trunk kernel launch) for 200 steps,
+     then the extract CLI by SH projection to degree 4 (an SH25 tree,
+     init_grid_depth PROJ_DEPTH): the tree reloads, its eval PSNR finite.
 
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
@@ -207,6 +239,9 @@ TRUNK_SMALL_ROWS = 10000
 TRUNK_CELLS = dict.fromkeys(("default", "posenc", "sh", "posenc+sh"),
                             (786432, 262144, TRUNK_SMALL_ROWS))
 TRUNK_CELLS["sg25"] = (TRUNK_ROWS,)  # the SG25 head's cell (the default variant)
+# The SH25 head (nerf_sh/config/tt: 1 + 75 columns, padded to 128): its
+# raw coefficients, and the in-kernel decode against a degree-4 basis.
+TRUNK_CELLS["sh25"] = TRUNK_CELLS["sh25+sh"] = (TRUNK_ROWS,)
 TRAIN_STEPS = 200
 VARIANT_STEPS = 40  # the train CLI with both kernel switches on
 BENCH_BATCH = 4096
@@ -218,10 +253,10 @@ BENCH_STEPS = 100
 BWD_RTOL = 1e-5
 BWD_RERUN_RTOL = 2e-6
 # syn_sh16's extraction flags (octree/config/syn_sh16.json), cut from the
-# default init_grid_depth 8 to 7 (the fleet below extracts the same
-# checkpoint at 8 with the published flags), and its optimization flags
-# with 2 epochs.
-EXTRACT_DEPTH = 7
+# default init_grid_depth 8 to 6 (7 until the real-capture phases needed
+# the time; the fleet below extracts the same checkpoint at 8 with the
+# published flags), and its optimization flags with 2 epochs.
+EXTRACT_DEPTH = 6
 EXTRACT_FLAGS = [
     "--autoscale", "--scale_alpha_thresh", "0.1", "--radius", "1.4", "--samples_per_cell", "256",
     "--no_early_stop", "--renderer_step_size", "1e-5", "--init_grid_depth", str(EXTRACT_DEPTH),
@@ -296,6 +331,25 @@ FLEET_RES = 32
 COMPRESS_MIN_PSNR = 20.0
 COMPRESS_PALETTE_MIN_PSNR = 35.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+# Phases 24-27, the real-capture slice (cuts in PERF.md section 4):
+TT_CONFIG = "nerf_sh/config/tt"  # SH25, 8x256, 64 + 128 samples, batch 1024
+TT_TASKS = "octree/config/tt_sh25.json"
+TT_EPOCHS = 2  # of the published 40
+TT_VIEWS = (10, 4)  # NSVF fixture train (0_) / test (1_) views, at FLEET_RES
+LLFF_RES = 64
+LLFF_VIEWS = 20  # llffhold 8: views 0, 8, 16 are the test split
+LLFF_DEPTH = 7  # extraction's init_grid_depth, cut from 8
+# The NDC tile frame against the NDC march frame of the same pose (the
+# bound of the JAX package's test_ndc_matches_march).
+NDC_MIN_PSNR = 40.0
+NDC_FOCAL = 1.25 * RES  # the JAX test's 40 / 32
+N_NDC_ORBIT = 8
+PROJ_CONFIG = "nerf_sh/config/misc/proj"  # use_viewdirs, projected to SH degree 4
+PROJ_DEPTH = 5  # extraction's init_grid_depth, cut from 8
+# The projection's chunk: 10 leaves per dispatch (8 samples x 1,000 of the
+# 10,000 directions each, the JAX chunking rule), where the published 8192
+# makes one leaf per dispatch (34k dispatches: 127 s at depth 5).
+PROJ_CHUNK = 81920
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -396,13 +450,16 @@ def trunk_vs_plain(dev):
                                   bias_std=TRUNK_BIAS_STD)
     cells = [(name, params, pe, sh_dim) for name, (pe, sh_dim) in bench_trunk.VARIANTS.items()]
     cells.append(("sg25", sg_params, None, 0))
+    # The SH25 head (nerf_sh/config/tt) has the SG25 head's shape.
+    cells += [("sh25", sg_params, None, 0), ("sh25+sh", sg_params, None, 25)]
     results = {}
     for name, cell_params, pe, sh_dim in cells:
         flat, meta = trunk_weights(cell_params, 4, dev, pe, sh_dim)
         for n in TRUNK_CELLS[name]:
             t0 = time.time()
-            x, basis, gs, gr = bench_trunk.inputs(n, SEED, pe, sh_dim, dev)
-            if name == "sg25":  # cotangents of the 75 SG amplitudes, drawn as bench_trunk's
+            n_rgb = cell_params["Dense_9"]["kernel"].shape[1]
+            x, basis, gs, gr = bench_trunk.inputs(n, SEED, pe, sh_dim, dev, n_rgb)
+            if name == "sg25":  # cotangents of the 75 SG amplitudes, drawn as before
                 gr = torch.tensor(np.random.default_rng(SEED + n).normal(size=(n, 75)) * 1e-3,
                                   dtype=torch.float32, device=dev)
             s, r = fused_mlp.fused_trunk(flat, x, meta, basis)
@@ -772,7 +829,7 @@ def extract_main_path(train_dir):
         accel_level=vr.arrays["accel_level"], accel_reso=vr.arrays["accel_reso"],
         K_estimated=vr.contrib_slots, K_exact=vr._get_deferred(False).K,
     )
-    # At depth 7 the full accel grid fits its budget; phase 21b holds the
+    # At this depth the full accel grid fits its budget; phase 21b holds the
     # fleet's depth-8 tree to a budgeted one.
     if not (np.isfinite(img).all() and vr.arrays["accel_level"] <= back.max_depth + 1):
         raise RuntimeError("bad march frame of the extracted tree, or a bad accel grid")
@@ -1664,6 +1721,349 @@ def compression_main_path(trees):
                            f"sigma cut (floor {COMPRESS_PALETTE_MIN_PSNR})")
 
 
+def _train(config, train_dir, extra, steps=TRAIN_STEPS):
+    """The train CLI in-process (its per-step lines to train.log); returns
+    (model, state, launches (fwd, bwd), train PSNRs, last test PSNR)."""
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.utils.metrics_writer import read_scalars
+
+    fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+    with open(os.path.join(train_dir, "train.log"), "w") as log, contextlib.redirect_stdout(log):
+        model, state = train_cli.main([
+            "--config", config, "--train_dir", train_dir, "--device", "cuda", *extra,
+            "--max_steps", str(steps), "--lr_final", "5e-5", "--print_every", "1",
+            "--save_every", str(steps), "--render_every", str(steps),
+        ])
+    torch.cuda.synchronize()
+    psnr = [v for _, v in read_scalars(train_dir, "train_psnr")]
+    test = read_scalars(train_dir, "test_psnr")
+    return (model, state, (fused_mlp.fwd_launches, fused_mlp.bwd_launches), psnr,
+            test[-1][1] if test else None)
+
+
+def _restores_equal(model, state, train_dir):
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.zero_()
+    restored = ckpt_utils.restore_checkpoint(train_dir, ckpt_utils.create_train_state(fresh))
+    same = all(torch.equal(p, state.params[k]) for k, p in restored.params.items())
+    return restored.step, same
+
+
+def _check_train(label, psnr, restored_step, same, steps=TRAIN_STEPS):
+    first, last = float(np.mean(psnr[:20])), float(np.mean(psnr[-20:]))
+    if len(psnr) != steps or not all(math.isfinite(v) for v in psnr) or not last > first:
+        raise RuntimeError(f"{label}: train PSNR did not rise: first 20 {first}, last 20 {last}")
+    if not (restored_step == steps and same):
+        raise RuntimeError(f"{label}: the checkpoint did not restore into a fresh TrainState")
+    return first, last
+
+
+def ndc_serving(tree, index, smi):
+    """Phase 24 (run after phase 6, on its index): NDC serving of the
+    depth-7 serving tree read as an NDC volume (make_ndc_config at 800x800,
+    focal NDC_FOCAL): the tile inputs of a forward-facing pose (per-ray
+    origins, segment-endpoint AABB group masks), the tile kernel against
+    composite_tiles_reference (KERNEL_ATOL), both times, the bound and the
+    share of valid pieces whose mask is below 15; then an N_NDC_ORBIT-pose
+    forward-facing orbit at 800x800 (u8 frames), the median ms/frame."""
+    from plenoctree_tpu_torch.kernels import tile_composite
+    from plenoctree_tpu_torch.octree.renderer import make_ndc_config
+    from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+
+    t0 = time.time()
+    ndc = make_ndc_config(RES, RES, NDC_FOCAL)
+    r = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, index=index,
+                     ndc=ndc, device="cuda")
+    r.w1cap = int(min(r.grid_c, np.ceil(np.sqrt(3) * r.tile / NDC_FOCAL * r.grid_c) + 3))
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[0, 3], c2w[1, 3] = 0.05, -0.03
+    ti = r.make_tile_inputs_fn(RES, RES, NDC_FOCAL, r.rcap, r.w1cap, r.ccap)
+    idx = r.index
+    p2, _, _, _ = ti(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])
+    soa, kw = idx["soa"], r._kernel_kw
+    out_k = tile_composite.composite_tiles(*p2, soa, **kw)
+    out_p = tile_composite.composite_tiles_reference(*p2, soa, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    ms_kernel = cuda_ms(lambda: tile_composite.composite_tiles(*p2, soa, **kw), 10)
+    ms_plain = cuda_ms(lambda: tile_composite.composite_tiles_reference(*p2, soa, **kw), 2)
+    ms_inputs = cuda_ms(lambda: ti(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"]), 5)
+    bound = bound_of(*tile_work(p2, soa, kw["sigma_row"], kw["quantum"], out_k.numel() * 4),
+                     F32_FLOPS)
+    n_pieces = p2[0][:, 0, 0]
+    valid = torch.arange(p2[4].shape[-1], device=p2[4].device)[None] < n_pieces[:, None]
+    masks = p2[4][:, 0][valid]
+    o = p2[5][..., :3]
+    below15 = float((masks < 15).float().mean()) if masks.numel() else float("nan")
+    server = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2,
+                          index=index, ndc=ndc, output="u8", device="cuda")
+    tile_composite.launches = 0  # the served orbit is the main path; the checks above are not
+    frame_ms = []
+    for k in range(N_NDC_ORBIT):
+        pose = np.eye(4, dtype=np.float32)
+        th = 2.0 * np.pi * k / N_NDC_ORBIT
+        pose[0, 3], pose[1, 3] = 0.08 * np.cos(th), 0.08 * np.sin(th)
+        t1 = time.perf_counter()
+        img = server.render_persp(pose, RES, RES, NDC_FOCAL)
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        if img.shape != (RES, RES, 3) or img.min() == img.max():
+            raise RuntimeError(f"bad NDC served frame {k}")
+    phase(
+        "NDC tile kernel vs plain", t0, tiles=p2[0].shape[0], pieces_max=int(n_pieces.max()),
+        pieces_mean=float(n_pieces.float().mean()), masks_below_15_share=below15,
+        origins_per_ray=bool((o - o[:, :1]).abs().max() > 1e-4), max_abs_err=err,
+        tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_ms=ms_plain, tile_inputs_ms=ms_inputs,
+        bound_ms=bound[0], bound_by=bound[1], orbit_frames=N_NDC_ORBIT,
+        orbit_median_ms=float(np.median(frame_ms)), orbit_best_ms=float(np.min(frame_ms)),
+        orbit_first_ms=frame_ms[0], orbit_launches=tile_composite.launches, gpu=repr(smi),
+    )
+    if not err <= KERNEL_ATOL:
+        raise RuntimeError(f"NDC tile kernel disagrees with the plain version: {err}")
+    if not (0.0 < below15 and int(n_pieces.sum()) > 0):
+        raise RuntimeError(f"NDC group masks vacuous or no pieces: {below15}")
+    if tile_composite.launches < N_NDC_ORBIT:
+        raise RuntimeError(f"the NDC orbit launched the tile kernel {tile_composite.launches} times")
+    return dict(max_abs_err=err, ms=ms_kernel, plain_ms=ms_plain, bound=bound)
+
+
+def tt_train_main_path():
+    """Phase 25: an NSVF-layout scene written by the port's writer
+    (TT_VIEWS at FLEET_RES, bbox.txt [-1, 1]^3), then the train CLI on
+    nerf_sh/config/tt (SH25: a 1 + 75 head, batch 1024, 64 + 128 samples)
+    with the fused kernels, 200 steps: both trunk kernels launched on the
+    1 + 75 head, the train PSNR rising, checkpoint_200 restoring with equal
+    params. Returns (scene root, checkpoint root, scene name)."""
+    from plenoctree_tpu_torch.data.synthetic import write_nsvf_dataset
+
+    t0 = time.time()
+    spec = json.load(open(os.path.join(ROOT, TT_TASKS)))
+    scene_name = spec["scenes"][0]
+    data_root = os.path.join(ROOT, "build", "smoke", "tt_data")
+    train_root = os.path.join(ROOT, "build", "smoke", "tt_ckpt")
+    scene = write_nsvf_dataset(os.path.join(data_root, scene_name), *TT_VIEWS, FLEET_RES)
+    write_s = time.time() - t0
+    train_dir = os.path.join(train_root, scene_name)
+    os.makedirs(train_dir, exist_ok=True)
+    model, state, launches, psnr, test_psnr = _train(
+        TT_CONFIG, train_dir, ["--data_dir", scene, *TRAINED_MODEL_FLAGS])
+    _, meta = model.MLP_1.flat_weights()
+    step, same = _restores_equal(model, state, train_dir)
+    first, last = _check_train("T&T train", psnr, step, same)
+    phase("T&T train main path", t0, config=TT_CONFIG, scene=scene_name, views=FLEET_RES,
+          write_s=round(write_s, 2), sh_deg=model.sh_deg, head_d_out=meta["d_out"],
+          steps=len(psnr), fwd_launches=launches[0], bwd_launches=launches[1],
+          psnr_first20=first, psnr_last20=last, test_psnr=test_psnr, restored_step=step,
+          params_equal=same)
+    if meta["d_out"] != 76 or min(launches) <= 0:
+        raise RuntimeError(f"the T&T train run did not launch both trunk kernels on the 1 + 75 "
+                           f"head: d_out {meta['d_out']}, launches {launches}")
+    return data_root, train_root, scene_name
+
+
+def tt_fleet_main_path(data_root, train_root, scene_name):
+    """Phase 26: `python -m plenoctree_tpu_torch.cli.task_manager tasks.json
+    --gpus "0"` on octree/config/tt_sh25.json as it stands (its {%} scene
+    templating, --bbox_from_data --data_bbox_scale 1.2, --split_train
+    --split_holdout_prop 0.1, and its other published flags), cut to one
+    scene and --num_epochs 40 -> TT_EPOCHS, plus the trained model's flags,
+    on phase 25's scene and checkpoint: rc 0, one results.txt line without
+    error, finite PSNRs, the wall-clock of each stage, and the tree's
+    bbox-derived centre and radius."""
+    from plenoctree_tpu_torch import bench_fleet
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    t0 = time.time()
+    spec = json.load(open(os.path.join(ROOT, TT_TASKS)))
+    spec.update(data_root=data_root, train_root=train_root, scenes=[scene_name])
+    task = spec["scene_tasks"][0]
+    i = task["opt_flags"].index("--num_epochs")
+    task["opt_flags"][i + 1] = str(TT_EPOCHS)
+    for key in ("extr_flags", "opt_flags", "eval_flags"):
+        task[key] = task[key] + TRAINED_MODEL_FLAGS
+    fleet_dir = os.path.join(ROOT, "build", "smoke", "tt_fleet")
+    rc, stages, lines, wall = bench_fleet.run_fleet(spec, fleet_dir)
+    ok = rc == 0 and len(lines) == 1 and "error" not in lines[0]
+    tree = N3Tree.load(os.path.join(train_root, scene_name, "octrees", "tree.npz")) if ok else None
+    phase("T&T fleet main path", t0, rc=rc, epochs=TT_EPOCHS, views=FLEET_RES,
+          wall_s=round(wall, 2), stage_wall_s=json.dumps(stages),
+          results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]),
+          bbox_center=None if tree is None else ((0.5 - tree.offset) / tree.invradius).tolist(),
+          bbox_radius=None if tree is None else (0.5 / tree.invradius).tolist(),
+          leaves=None if tree is None else tree.n_leaves, depth=None if tree is None else
+          tree.max_depth)
+    if not ok:
+        raise RuntimeError(f"the T&T fleet failed: rc {rc}, results {lines} "
+                           f"(see {fleet_dir}/fleet.log)")
+    if not (math.isfinite(lines[0]["raw_psnr"]) and math.isfinite(lines[0]["psnr"])):
+        raise RuntimeError(f"non-finite T&T fleet PSNRs: {lines}")
+    if not np.allclose(0.5 / tree.invradius, 1.2, rtol=1e-5):
+        raise RuntimeError("the tree's radius is not bbox.txt's times --data_bbox_scale 1.2")
+
+
+def llff_main_path():
+    """Phase 27: an LLFF capture written by the port's writer (LLFF_VIEWS
+    forward-facing views at LLFF_RES), a config with llff in its path (so
+    every stage runs in NDC), the train CLI for 200 steps with the fused
+    kernels (SH16 at full width, batch 1024, 64 + 128 samples, near 0, far
+    1 in NDC); then, with the model flags as trained, the extract CLI with
+    --center "0 0 0" --radius 1.05 (init_grid_depth LLFF_DEPTH), the
+    optimize CLI (the march, as for every NDC config), the evaluate CLI
+    exact and with --fast_eval (the tile kernel must launch), the NDC tile
+    frame against the NDC march frame of the same test pose (at least
+    NDC_MIN_PSNR dB), and the NeRF eval CLI with --render_path (the spiral
+    into path_renders/)."""
+    from plenoctree_tpu_torch.cli import eval as nerf_eval_cli
+    from plenoctree_tpu_torch.cli import evaluate as evaluate_cli
+    from plenoctree_tpu_torch.cli import extract as extract_cli
+    from plenoctree_tpu_torch.cli import optimize as optimize_cli
+    from plenoctree_tpu_torch.data import get_dataset
+    from plenoctree_tpu_torch.data.synthetic import write_llff_dataset
+    from plenoctree_tpu_torch.kernels import tile_composite
+    from plenoctree_tpu_torch.octree import N3Tree
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer, make_ndc_config
+    from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    t0 = time.time()
+    root = os.path.join(ROOT, "build", "smoke", "llff")
+    scene = write_llff_dataset(os.path.join(root, "scene"), LLFF_VIEWS, LLFF_RES)
+    config = os.path.join(root, "llff_smoke.yaml")
+    with open(config, "w") as f:
+        f.write("dataset: llff\nfactor: 0\nllffhold: 8\nnear: 0.0\nfar: 1.0\n"
+                "white_bkgd: false\nimage_batching: true\nbatch_size: 1024\nsh_deg: 3\n"
+                "use_viewdirs: false\n"
+                "num_coarse_samples: 64\nnum_fine_samples: 128\nrandomized: true\n")
+    train_dir = os.path.join(root, "train")
+    os.makedirs(train_dir, exist_ok=True)
+    model_flags = ["--config", config, "--data_dir", scene, "--train_dir", train_dir,
+                   "--device", "cuda", *TRAINED_MODEL_FLAGS]
+    model, state, launches, psnr, test_psnr = _train(config, train_dir, model_flags[2:4]
+                                                     + TRAINED_MODEL_FLAGS)
+    step, same = _restores_equal(model, state, train_dir)
+    first, last = _check_train("LLFF train", psnr, step, same)
+    del model, state
+    phase("LLFF train main path", t0, views=LLFF_VIEWS, res=LLFF_RES, steps=len(psnr),
+          fwd_launches=launches[0], bwd_launches=launches[1], psnr_first20=first,
+          psnr_last20=last, test_psnr=test_psnr, restored_step=step, params_equal=same)
+    if min(launches) <= 0:
+        raise RuntimeError(f"the LLFF train run did not launch both trunk kernels: {launches}")
+
+    def quiet(log_name, fn, argv):
+        with open(os.path.join(root, log_name), "w") as log, contextlib.redirect_stdout(log):
+            return fn(argv)
+
+    t0 = time.time()
+    tree_path = os.path.join(root, "tree.npz")
+    opt_path = os.path.join(root, "tree_opt.npz")
+    tree = quiet("extract.log", extract_cli.main, model_flags + [
+        "--output", tree_path, "--center", "0 0 0", "--radius", "1.05",
+        "--init_grid_depth", str(LLFF_DEPTH)])
+    with open(tree_path + ".results.json") as f:
+        raw = json.load(f)
+    extract_s = time.time() - t0
+    t1 = time.time()
+    tile_composite.launches = 0
+    _, best_psnr = quiet("optimize.log", optimize_cli.main, model_flags + [
+        "--input", tree_path, "--output", opt_path, "--num_epochs", "1"])
+    opt_launches = tile_composite.launches
+    optimize_s = time.time() - t1
+    best = opt_path if os.path.exists(opt_path) else tree_path
+    t1 = time.time()
+    march_psnr, _, _ = quiet("evaluate.log", evaluate_cli.main, model_flags + ["--input", best])
+    march_s = time.time() - t1
+    t1 = time.time()
+    tile_composite.launches = 0
+    tile_psnr, _, _ = quiet("evaluate_fast.log", evaluate_cli.main,
+                            model_flags + ["--input", best, "--fast_eval"])
+    fast_launches = tile_composite.launches
+    fast_s = time.time() - t1
+    cfg = config_lib.parse_flags(evaluate_cli.build_parser(), model_flags + ["--input", best])
+    test = get_dataset("test", cfg)
+    ndc = make_ndc_config(test.w, test.h, test.focal)
+    best_tree = N3Tree.load(best)
+    c2w = test.camtoworlds[0]
+    tile_img = TileRenderer(best_tree, step_size=cfg.renderer_step_size, ndc=ndc,
+                            device="cuda").render_persp(c2w, test.h, test.w, test.focal)
+    march_img = VolumeRenderer(best_tree, step_size=cfg.renderer_step_size, ndc=ndc,
+                               device="cuda").render_persp(c2w, test.h, test.w, test.focal,
+                                                           fast=False)
+    mse = float(((np.clip(tile_img, 0, 1) - np.clip(march_img, 0, 1)) ** 2).mean())
+    tile_vs_march = 10.0 * math.log10(1.0 / max(mse, 1e-12))
+    t1 = time.time()
+    quiet("render_path.log", nerf_eval_cli.main, model_flags + ["--render_path"])
+    path_s = time.time() - t1
+    frames = sorted(os.listdir(os.path.join(train_dir, "path_renders")))
+    phase("LLFF NDC main path", t0, leaves=tree.n_leaves, depth=tree.max_depth,
+          raw_psnr=raw["psnr"], extract_s=round(extract_s, 2), best_val_psnr=best_psnr,
+          optimize_s=round(optimize_s, 2), optimize_tile_launches=opt_launches,
+          march_eval_psnr=march_psnr, march_eval_s=round(march_s, 2), fast_eval_psnr=tile_psnr,
+          fast_eval_s=round(fast_s, 2), fast_eval_launches=fast_launches,
+          tile_vs_march_psnr=tile_vs_march, min_psnr=NDC_MIN_PSNR,
+          path_renders=len(frames), render_path_s=round(path_s, 2))
+    if fast_launches <= 0 or opt_launches != 0:
+        raise RuntimeError(f"NDC tile launches: fast eval {fast_launches}, optimize "
+                           f"{opt_launches} (the march must optimize NDC configs)")
+    if not all(math.isfinite(v) for v in (raw["psnr"], march_psnr, tile_psnr)):
+        raise RuntimeError(f"non-finite LLFF PSNRs: {raw['psnr']} {march_psnr} {tile_psnr}")
+    if not tile_vs_march >= NDC_MIN_PSNR:
+        raise RuntimeError(f"NDC tile frame {tile_vs_march} dB from the march frame "
+                           f"(< {NDC_MIN_PSNR})")
+    if len(frames) != 240 or "119.png" not in frames:
+        raise RuntimeError(f"--render_path wrote {len(frames)} files, want 240 (120 poses)")
+
+
+def viewdirs_main_path():
+    """Phase 28: the train CLI on nerf_sh/config/misc/proj (use_viewdirs:
+    the view-conditioned branch, the plain path; no trunk kernel may
+    launch), 200 steps on the synthetic scene; then the extract CLI on that
+    checkpoint by SH projection to degree 4 (SH25 tree; init_grid_depth
+    PROJ_DEPTH), the tree reloading and its eval PSNR finite."""
+    from plenoctree_tpu_torch.cli import extract as extract_cli
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    t0 = time.time()
+    train_dir = tempfile.mkdtemp(prefix="train_proj_", dir=os.path.join(ROOT, "build", "smoke"))
+    flags = ["--dataset", "synthetic"]
+    model, state, launches, psnr, test_psnr = _train(PROJ_CONFIG, train_dir, flags)
+    step, same = _restores_equal(model, state, train_dir)
+    first, last = _check_train("proj train", psnr, step, same)
+    names = len(list(model.MLP_0.layers()))
+    phase("view-conditioned train main path", t0, config=PROJ_CONFIG, steps=len(psnr),
+          mlp_layers=names, fwd_launches=launches[0], bwd_launches=launches[1],
+          psnr_first20=first, psnr_last20=last, test_psnr=test_psnr, restored_step=step,
+          params_equal=same)
+    if launches != (0, 0) or not model.use_viewdirs:
+        raise RuntimeError(f"the view-conditioned run launched trunk kernels: {launches}")
+    del model, state
+    t0 = time.time()
+    out = os.path.join(train_dir, "tree.npz")
+    fused_mlp.fwd_launches = 0
+    with open(os.path.join(train_dir, "extract.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        tree = extract_cli.main(["--config", PROJ_CONFIG, *flags, "--train_dir", train_dir,
+                                 "--device", "cuda", "--output", out,
+                                 "--init_grid_depth", str(PROJ_DEPTH),
+                                 "--chunk", str(PROJ_CHUNK),
+                                 "--synthetic_resolution", str(EVAL_RES)])
+    with open(out + ".results.json") as f:
+        results = json.load(f)
+    back = N3Tree.load(out)
+    phase("projection extract main path", t0, format=repr(back.data_format),
+          data_dim=back.data_dim, leaves=back.n_leaves, depth=back.max_depth,
+          eval_psnr=results["psnr"], eval_ssim=results["ssim"],
+          fwd_launches=fused_mlp.fwd_launches)
+    if repr(back.data_format) != "SH25" or back.n_leaves != tree.n_leaves or tree.n_leaves == 0:
+        raise RuntimeError(f"bad projected tree: {back}")
+    if not math.isfinite(results["psnr"]):
+        raise RuntimeError(f"bad projection extraction eval {results}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1802,7 +2202,9 @@ def main():
         best_ms=float(np.min(frame_ms)), first_ms=frame_ms[0],
         peak_mem_gib=peak / 2**30, ccap=server.ccap, w1cap=server.w1cap, gpu=repr(smi),
     )
-    del server, renderer, idx, soa, p2, out_k, out_p
+    del server, soa, p2, out_k, out_p
+    ndc_serving(tree, renderer.index, smi)
+    del renderer, idx
     torch.cuda.empty_cache()
 
     trunk = trunk_vs_plain(dev)
@@ -1836,6 +2238,11 @@ def main():
     fleet_tree_march(fleet_trees["SH16"])
     sg_tiles(tree)
     compression_main_path(fleet_trees)
+    torch.cuda.empty_cache()
+    with kernel_switches(False):
+        tt_fleet_main_path(*tt_train_main_path())
+        llff_main_path()
+        viewdirs_main_path()
     phase("total", start)
 
     bench_rows = trunk["default", TRUNK_ROWS]

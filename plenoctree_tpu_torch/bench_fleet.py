@@ -82,7 +82,8 @@ def fleet_tasks(sh_dir, sg_dir, data_dir, epochs):
 
 def run_fleet(tasks, fleet_dir):
     """`python -m plenoctree_tpu_torch.cli.task_manager tasks.json --gpus 0`
-    as a subprocess (its output to fleet.log) on `tasks` written to
+    as a subprocess (its output to fleet.log) on `tasks` (a list of tasks,
+    or a whole task-file spec with its scenes and roots) written to
     fleet_dir/tasks.json; returns (rc, {task's train_dir name: {stage: s}}
     from the worker's stage lines, the results.txt lines, wall s)."""
     os.makedirs(fleet_dir, exist_ok=True)
@@ -91,7 +92,7 @@ def run_fleet(tasks, fleet_dir):
         os.remove(results_path)
     task_file = os.path.join(fleet_dir, "tasks.json")
     with open(task_file, "w") as f:
-        json.dump({"tasks": tasks}, f, indent=1)
+        json.dump(tasks if isinstance(tasks, dict) else {"tasks": tasks}, f, indent=1)
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.time()
     marks = []  # (seconds since start, stage line)

@@ -101,8 +101,10 @@ def within_noise_floor(got, plain, exact, factor=TRUNK_SMALL_ROW_FACTOR):
     return d_got, d_plain, d_got <= factor * d_plain
 
 
-def inputs(n, seed, pe, sh, device):
-    """Phase 7's draws: points, the basis of random directions, cotangents."""
+def inputs(n, seed, pe, sh, device, n_rgb=48):
+    """Phase 7's draws: points, the basis of random directions (degree
+    sqrt(sh) - 1: 3 for sh 16, 4 for sh 25), cotangents of the n_rgb head
+    columns (3 decoded colours with the SH decode)."""
     rng = np.random.default_rng(seed + n)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     pts = t(rng.uniform(-1.5, 1.5, (n, 3)))
@@ -110,9 +112,9 @@ def inputs(n, seed, pe, sh, device):
     basis = None
     if sh:
         dirs = t(rng.normal(size=(n, 3)))
-        basis = sh_basis(3, dirs / dirs.norm(dim=-1, keepdim=True))
+        basis = sh_basis(int(round(sh ** 0.5)) - 1, dirs / dirs.norm(dim=-1, keepdim=True))
     gs = t(rng.normal(size=(n, 1)) * 1e-3)
-    gr = t(rng.normal(size=(n, 3 if sh else 48)) * 1e-3)
+    gr = t(rng.normal(size=(n, 3 if sh else n_rgb)) * 1e-3)
     return x, basis, gs, gr
 
 

@@ -7,11 +7,11 @@ inference model), print PSNR/SSIM per image and on average, write
 `psnr.txt` and `ssim.txt` into the train dir and the `eval_psnr` /
 `eval_ssim` scalars into `<train_dir>/eval/metrics.jsonl`, and with
 --save_output (the default) `test_preds/{idx:03d}.png` and
-`disp_{idx:03d}.png`. Without --eval_once it polls: every 10 s it looks for
-a newer checkpoint, and it stops after evaluating one at --max_steps.
-
-Not ported (raise NotImplementedError naming ROADMAP.md A4): --render_path
-and LLFF scenes (their normalized disparity).
+`disp_{idx:03d}.png`. With --render_path (LLFF: the spiral, or the circle
+when spherified) it renders the path's poses into `path_renders/` and
+computes no metrics. LLFF disparities are min-max normalised per image.
+Without --eval_once it polls: every 10 s it looks for a newer checkpoint,
+and it stops after evaluating one at --max_steps.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.eval --config nerf_sh/config/blender \\
@@ -52,20 +52,17 @@ def build_parser():
 
 
 def main(argv=None):
-    """Returns (average PSNR, average SSIM) of the last checkpoint evaluated."""
+    """Returns (average PSNR, average SSIM) of the last checkpoint evaluated
+    (NaN with --render_path, which computes no metrics)."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
-    if cfg.render_path or cfg.dataset == "llff":
-        raise NotImplementedError(
-            "--render_path and LLFF evaluation wait for the LLFF loader (ROADMAP.md A4)"
-        )
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
 
     dataset = get_dataset("test", cfg)
-    out_dir = os.path.join(cfg.train_dir, "test_preds")
+    out_dir = os.path.join(cfg.train_dir, "path_renders" if cfg.render_path else "test_preds")
     if cfg.save_output:
         os.makedirs(out_dir, exist_ok=True)
     last_step = 0
@@ -85,31 +82,35 @@ def main(argv=None):
                     continue
                 print(f"Evaluating {idx + 1}/{dataset.size}")
                 pred_color, pred_disp, _ = engine.render_image(
-                    model, case["rays"], chunk=cfg.chunk, device=device
+                    model, case["rays"], chunk=cfg.chunk, device=device,
+                    normalize_disp=cfg.dataset == "llff",
                 )
-                gt = case["pixels"]
-                psnr = float(compute_psnr(float(np.mean((pred_color - gt) ** 2))))
-                ssim = float(compute_ssim(
-                    torch.from_numpy(pred_color), torch.from_numpy(np.asarray(gt, np.float32)), 1.0,
-                ))
-                print(f"  PSNR = {psnr:.4f}, SSIM = {ssim:.4f}")
-                psnr_values.append(psnr)
-                ssim_values.append(ssim)
+                if not cfg.render_path:
+                    gt = case["pixels"]
+                    psnr = float(compute_psnr(float(np.mean((pred_color - gt) ** 2))))
+                    ssim = float(compute_ssim(
+                        torch.from_numpy(pred_color), torch.from_numpy(np.asarray(gt, np.float32)),
+                        1.0,
+                    ))
+                    print(f"  PSNR = {psnr:.4f}, SSIM = {ssim:.4f}")
+                    psnr_values.append(psnr)
+                    ssim_values.append(ssim)
                 if cfg.save_output:
                     io_utils.save_img(pred_color, os.path.join(out_dir, f"{idx:03d}.png"))
                     io_utils.save_img(
                         pred_disp[..., 0], os.path.join(out_dir, f"disp_{idx:03d}.png")
                     )
-            avg_psnr = float(np.mean(psnr_values))
-            avg_ssim = float(np.mean(ssim_values))
-            writer.scalar("eval_psnr", avg_psnr, step)
-            writer.scalar("eval_ssim", avg_ssim, step)
-            with open(os.path.join(cfg.train_dir, "psnr.txt"), "w") as f:
-                f.write(f"{avg_psnr}")
-            with open(os.path.join(cfg.train_dir, "ssim.txt"), "w") as f:
-                f.write(f"{avg_ssim}")
-            print(f"Average over {len(psnr_values)} images: PSNR {avg_psnr:.4f} "
-                  f"SSIM {avg_ssim:.4f}")
+            if not cfg.render_path:
+                avg_psnr = float(np.mean(psnr_values))
+                avg_ssim = float(np.mean(ssim_values))
+                writer.scalar("eval_psnr", avg_psnr, step)
+                writer.scalar("eval_ssim", avg_ssim, step)
+                with open(os.path.join(cfg.train_dir, "psnr.txt"), "w") as f:
+                    f.write(f"{avg_psnr}")
+                with open(os.path.join(cfg.train_dir, "ssim.txt"), "w") as f:
+                    f.write(f"{avg_ssim}")
+                print(f"Average over {len(psnr_values)} images: PSNR {avg_psnr:.4f} "
+                      f"SSIM {avg_ssim:.4f}")
             if cfg.eval_once or step >= cfg.max_steps:
                 break
             last_step = step

@@ -11,9 +11,9 @@ NeRF is queried on `--device` (the fused trunk kernel with --use_pallas on
 a GPU).
 
 SG models (sg_dim > 0) give SG{sg_dim} trees whose extra_data [N, 4]
-holds (softplus lambda, cartesian mu). Not ported (raises
-NotImplementedError naming ROADMAP.md): use_viewdirs models (SH
-projection).
+holds (softplus lambda, cartesian mu). use_viewdirs models
+(nerf_sh/config/misc/proj) give SH trees of degree --sh_deg by
+Monte-Carlo SH projection over --projection_samples directions.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.extract --train_dir <ckpt dir> \\
@@ -67,7 +67,11 @@ def main(argv=None):
             "--tree_branch_n != 2 is not supported by extraction (the dense "
             "evaluation grid is base-2, as in the reference)"
         )
-    extract_lib._check_supported(cfg)
+    if cfg.use_viewdirs and cfg.sh_deg < 0:
+        raise ValueError(
+            "a use_viewdirs model is extracted by SH projection: set --sh_deg to the "
+            "target degree (nerf_sh/config/misc/proj sets 4)"
+        )
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
@@ -137,7 +141,8 @@ def main(argv=None):
         extra_data=extra_data,
     )
     extract_lib.step1_build(cfg, tree, points_fn, dataset, device=device)
-    extract_lib.step2_fill(cfg, tree, points_fn, device=device)
+    cross_fn = extract_lib.make_cross_fn(model, device) if cfg.use_viewdirs else None
+    extract_lib.step2_fill(cfg, tree, points_fn, device=device, cross_fn=cross_fn)
     tree.relu_sigma_()
     tree.shrink_to_fit()
     print(tree)

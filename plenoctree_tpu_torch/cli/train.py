@@ -132,6 +132,7 @@ def main(argv=None):
                 pred_color, pred_disp, pred_acc = engine.render_image(
                     model, test_case["rays"], chunk=cfg.chunk, device=device,
                     randomized=cfg.randomized, generator=gen,
+                    normalize_disp=cfg.dataset == "llff",
                 )
                 gt = test_case["pixels"]
                 psnr = float(compute_psnr(float(np.mean((pred_color - gt) ** 2))))

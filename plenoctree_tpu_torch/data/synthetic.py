@@ -138,6 +138,84 @@ def write_blender_dataset(out_dir, n_train=12, n_test=4, resolution=64, white_bk
     return out_dir
 
 
+def write_nsvf_dataset(out_dir, n_train=8, n_test=3, resolution=48, white_bkgd=True):
+    """The synthetic scene in NSVF layout (intrinsics.txt, pose/, rgb/ as
+    8-bit RGB PNGs written by utils/png.py, bbox.txt), as
+    plenoctree_tpu/data/synthetic.py::write_nsvf_dataset writes it: train
+    views prefixed 0_, test views 1_ (the loader's test split falls back to
+    them); returns out_dir."""
+    import os
+
+    from plenoctree_tpu_torch.utils.png import write_png
+
+    os.makedirs(os.path.join(out_dir, "pose"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    focal = 1.1 * resolution
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = focal
+    K[0, 2] = K[1, 2] = resolution / 2
+    np.savetxt(os.path.join(out_dir, "intrinsics.txt"), K)
+    # Scene bbox: the blobs live within ~[-0.9, 0.9].
+    np.savetxt(
+        os.path.join(out_dir, "bbox.txt"),
+        np.array([[-1.0, -1.0, -1.0, 1.0, 1.0, 1.0, 0.01]]),
+    )
+    cam_trans = np.diag(np.array([1, -1, -1, 1], dtype=np.float32))
+    for split, prefix, n in (("train", "0", n_train), ("test", "1", n_test)):
+        images, c2ws, _ = render_synthetic_scene(
+            split, n, resolution, white_bkgd, near=2.0, far=6.0
+        )
+        for i in range(n):
+            name = f"{prefix}_{i:04d}"
+            write_png(os.path.join(out_dir, "rgb", name + ".png"),
+                      (images[i] * 255).astype(np.uint8))
+            # The loader right-multiplies by cam_trans (its own inverse).
+            np.savetxt(os.path.join(out_dir, "pose", name + ".txt"), c2ws[i] @ cam_trans)
+    return out_dir
+
+
+def write_llff_dataset(out_dir, n_views=10, resolution=32):
+    """A forward-facing capture of the synthetic scene in LLFF layout
+    (images/ as 8-bit RGB PNGs written by utils/png.py, poses_bounds.npy),
+    as plenoctree_tpu/data/synthetic.py::write_llff_dataset writes it:
+    cameras look down -z from z ~ 4 with seeded lateral offsets and slightly
+    jittered axes (spherify's closest-point solve needs them not all
+    parallel); returns out_dir."""
+    import os
+
+    from plenoctree_tpu_torch.data.poses import viewmatrix
+    from plenoctree_tpu_torch.utils.png import write_png
+
+    imgdir = os.path.join(out_dir, "images")
+    os.makedirs(imgdir, exist_ok=True)
+    focal = 1.2 * resolution
+    rows = []
+    rng = np.random.default_rng(7)
+    for i in range(n_views):
+        c2w = np.eye(4, dtype=np.float32)
+        pos = np.array(
+            [0.4 * rng.standard_normal(), 0.4 * rng.standard_normal(), 4.0], dtype=np.float32
+        )
+        back = np.array(
+            [0.05 * rng.standard_normal(), 0.05 * rng.standard_normal(), 1.0], dtype=np.float32
+        )
+        c2w[:3, :4] = viewmatrix(back, np.array([0.0, 1.0, 0.0]), pos)
+        rays = generate_rays(resolution, resolution, focal, c2w[None])
+        img = render_rays_analytic(
+            rays.origins.reshape(-1, 3), rays.directions.reshape(-1, 3), 1.0, 8.0
+        ).reshape(resolution, resolution, 3)
+        write_png(os.path.join(imgdir, f"img_{i:03d}.png"), (img * 255).astype(np.uint8))
+        r = c2w[:3, :3]
+        # LLFF storage convention: the loader maps rows [s1, -s0, s2] -> c2w.
+        stored = np.stack([-r[1], r[0], r[2]], axis=0)
+        m = np.concatenate(
+            [stored, c2w[:3, 3:4], np.array([[resolution], [resolution], [focal]])], axis=1
+        )
+        rows.append(np.concatenate([m.reshape(-1), [2.0, 7.0]]))
+    np.save(os.path.join(out_dir, "poses_bounds.npy"), np.stack(rows))
+    return out_dir
+
+
 def build_scene_tree(depth=4, basis_dim=1, sh_noise=0.0, seed=0):
     """Bake the analytic scene into an SH octree (the recipe of
     tests/test_octree.py::build_scene_tree, generalised to SH degree > 0).

@@ -110,11 +110,13 @@ def device_batches(dataset, device):
 
 
 @torch.no_grad()
-def render_image(model, rays, chunk=8192, device="cpu", randomized=False, generator=None):
+def render_image(model, rays, chunk=8192, device="cpu", randomized=False, generator=None,
+                 normalize_disp=False):
     """Render all pixels of an image ([H, W, 3] numpy Rays) in chunks with the
     plain forward (never the fused training kernels, as the JAX package's
     `_inference_model`). Returns numpy (rgb [H, W, 3], disp [H, W, 1],
-    acc [H, W, 1])."""
+    acc [H, W, 1]); with normalize_disp (LLFF scenes, whose NDC disparity
+    has no fixed range) the disparity is min-max normalised to [0, 1]."""
     device = torch.device(device)
     height, width = rays[0].shape[:2]
     flat = [torch.from_numpy(np.ascontiguousarray(r).reshape(-1, 3)) for r in rays]
@@ -124,6 +126,8 @@ def render_image(model, rays, chunk=8192, device="cpu", randomized=False, genera
         rgb, disp, acc = model(chunk_rays, randomized, generator, use_pallas=False)[-1]
         outs.append([rgb.float().cpu(), disp.float().cpu(), acc.float().cpu()])
     rgb, disp, acc = [torch.cat(x, 0).numpy() for x in zip(*outs)]
+    if normalize_disp:
+        disp = (disp - disp.min()) / (disp.max() - disp.min())
     return (
         rgb.reshape(height, width, -1),
         disp.reshape(height, width, -1),

@@ -1,20 +1,26 @@
 """The NeRF trunk MLP as an nn.Module.
 
-Port of plenoctree_tpu/models/mlp.py for the SH/SG trunk (no view branch):
-`net_depth` x `net_width` ReLU layers with a skip concat [h, x] after layer
-i when i % skip == 0 and i > 0, a sigma head and an rgb head. Layers are
-`Dense_0 .. Dense_{depth+1}` in call order and store flax's layouts (kernel
-[in, out], bias [out]), so `MLP_k.Dense_i.kernel` is flax's
-`MLP_k/Dense_i/kernel` unchanged (models/params.py).
+Port of plenoctree_tpu/models/mlp.py: `net_depth` x `net_width` layers with
+a skip concat [h, x] after layer i when i % skip == 0 and i > 0, a sigma
+head, and either an rgb head straight off the trunk (SH / SG heads) or,
+with `condition`, the view-conditioned branch: a bottleneck Dense, the
+encoded view direction concatenated to it, `net_depth_condition` layers of
+`net_width_condition`, then the rgb head. Layers are `Dense_0 .. Dense_n`
+in call order (trunk, sigma, [bottleneck, condition layers,] rgb), as flax
+names them, and store flax's layouts (kernel [in, out], bias [out]), so
+`MLP_k.Dense_i.kernel` is flax's `MLP_k/Dense_i/kernel` unchanged
+(models/params.py). `activation` is the trunk's and the condition layers'
+nonlinearity (models/nerf.py::activation_by_name).
 
 Two forwards, as in the JAX package:
-  * `forward` (the flax `__call__`): plain PyTorch. compute_dtype bfloat16
-    casts inputs, kernels and biases to bf16 as flax's
-    nn.Dense(dtype=bfloat16) does (bf16 products and bias adds); float32 is
-    full f32. Every render and eval uses it.
-  * `fused_enc`: the training path with use_pallas; packs the layers as
-    pack_params_traced does ([W_sigma | W_rgb] head concat as a
-    differentiable torch op) and calls the fused trunk kernels
+  * `forward` (the flax `__call__`; `cross` evaluates every point against
+    every direction): plain PyTorch. compute_dtype bfloat16 casts inputs,
+    kernels and biases to bf16 as flax's nn.Dense(dtype=bfloat16) does
+    (bf16 products and bias adds); float32 is full f32. Every render and
+    eval uses it, and every model with the view-conditioned branch.
+  * `fused_enc`: the training path with use_pallas (no view branch); packs
+    the layers as pack_params_traced does ([W_sigma | W_rgb] head concat as
+    a differentiable torch op) and calls the fused trunk kernels
     (kernels/fused_mlp.py), whose gradients flow back to every Dense.
 """
 
@@ -39,54 +45,112 @@ class Dense(nn.Module):
 
 
 class TrunkMLP(nn.Module):
-    """Trunk + sigma head + rgb head (no view-conditioned branch)."""
+    """Trunk + sigma head + (optional) view-conditioned branch + rgb head.
+
+    With condition=True, d_condition is the width of the encoded view
+    direction the branch concatenates to the bottleneck."""
 
     def __init__(self, d_in, net_depth=8, net_width=256, skip_layer=4, num_rgb_channels=3,
-                 num_sigma_channels=1, condition=False, compute_dtype=torch.float32):
+                 num_sigma_channels=1, condition=False, compute_dtype=torch.float32,
+                 d_condition=0, net_depth_condition=1, net_width_condition=128,
+                 activation=torch.relu):
         super().__init__()
-        if condition:
-            raise NotImplementedError(
-                "the view-conditioned branch (use_viewdirs) is not ported yet (ROADMAP.md)"
-            )
+        if condition and d_condition <= 0:
+            raise ValueError("the view-conditioned branch needs d_condition > 0")
         self.d_in = d_in
         self.net_depth = net_depth
         self.net_width = net_width
         self.skip_layer = skip_layer
         self.num_rgb_channels = num_rgb_channels
         self.num_sigma_channels = num_sigma_channels
+        self.condition = bool(condition)
         self.compute_dtype = compute_dtype
+        self.activation = activation
+        names = iter(f"Dense_{i}" for i in range(net_depth + net_depth_condition + 3))
+
+        def dense(k, n):
+            name = next(names)
+            setattr(self, name, Dense(k, n))
+            return name
+
         k = d_in
+        self.trunk_names = []
         for i in range(net_depth):
-            setattr(self, f"Dense_{i}", Dense(k, net_width))
+            self.trunk_names.append(dense(k, net_width))
             k = net_width + d_in if (i % skip_layer == 0 and i > 0) else net_width
-        setattr(self, f"Dense_{net_depth}", Dense(k, num_sigma_channels))
-        setattr(self, f"Dense_{net_depth + 1}", Dense(k, num_rgb_channels))
+        self.sigma_name = dense(k, num_sigma_channels)
+        self.cond_names = []
+        if self.condition:
+            self.bottleneck_name = dense(k, net_width)
+            k = net_width + d_condition
+            for _ in range(net_depth_condition):
+                self.cond_names.append(dense(k, net_width_condition))
+                k = net_width_condition
+        self.rgb_name = dense(k, num_rgb_channels)
 
     def layers(self):
-        """Dense_0 .. Dense_{depth+1} in call order (trunk, sigma, rgb)."""
-        return [getattr(self, f"Dense_{i}") for i in range(self.net_depth + 2)]
+        """Every Dense in call order (trunk, sigma, [bottleneck, condition
+        layers,] rgb)."""
+        names = self.trunk_names + [self.sigma_name]
+        if self.condition:
+            names += [self.bottleneck_name] + self.cond_names
+        return [getattr(self, n) for n in names + [self.rgb_name]]
 
-    def forward(self, x):
-        """[B, S, F] encoded points -> (raw_rgb [B, S, C], raw_sigma [B, S, 1]) f32."""
-        num_samples = x.shape[1]
+    def _trunk(self, x):
+        """[rows, F] -> trunk features [rows, W (+ F after a final skip)]."""
         dt = self.compute_dtype
-        x = x.reshape(-1, x.shape[-1]).to(dt)
         inputs = x
-        layers = self.layers()
-        for i in range(self.net_depth):
-            x = torch.relu(layers[i](x, dt))
+        for i, name in enumerate(self.trunk_names):
+            x = self.activation(getattr(self, name)(x, dt))
             if i % self.skip_layer == 0 and i > 0:
                 x = torch.cat([x, inputs], dim=-1)
-        raw_sigma = layers[self.net_depth](x, dt).float()
-        raw_rgb = layers[self.net_depth + 1](x, dt).float()
+        return x
+
+    def _condition_branch(self, bottleneck, condition):
+        x = torch.cat([bottleneck, condition], dim=-1)
+        for name in self.cond_names:
+            x = self.activation(getattr(self, name)(x, self.compute_dtype))
+        return x
+
+    def forward(self, x, condition=None):
+        """[B, S, F] encoded points (and, with the view branch, [B, F_view]
+        encoded view directions shared by a ray's samples) ->
+        (raw_rgb [B, S, C], raw_sigma [B, S, 1]) f32."""
+        num_samples = x.shape[1]
+        dt = self.compute_dtype
+        x = self._trunk(x.reshape(-1, x.shape[-1]).to(dt))
+        raw_sigma = getattr(self, self.sigma_name)(x, dt).float()
+        if condition is not None:
+            b = getattr(self, self.bottleneck_name)(x, dt)
+            cond = condition[:, None, :].to(dt).expand(-1, num_samples, -1)
+            x = self._condition_branch(b, cond.reshape(-1, condition.shape[-1]))
+        raw_rgb = getattr(self, self.rgb_name)(x, dt).float()
         return (
             raw_rgb.reshape(-1, num_samples, self.num_rgb_channels),
             raw_sigma.reshape(-1, num_samples, self.num_sigma_channels),
         )
 
+    def cross(self, x, condition):
+        """Every point against every direction (the view branch only): x
+        [P, F] encoded points, condition [D, F_view] encoded directions ->
+        (raw_rgb [P, D, C], raw_sigma [P, 1]) f32. The trunk runs once per
+        point; only the condition branch runs per (point, direction)."""
+        dt = self.compute_dtype
+        x = self._trunk(x.to(dt))
+        raw_sigma = getattr(self, self.sigma_name)(x, dt).float()
+        b = getattr(self, self.bottleneck_name)(x, dt)
+        p, d = b.shape[0], condition.shape[0]
+        bb = b[:, None, :].expand(p, d, b.shape[-1]).reshape(p * d, -1)
+        cc = condition[None].to(dt).expand(p, d, condition.shape[-1]).reshape(p * d, -1)
+        out = self._condition_branch(bb, cc)
+        raw_rgb = getattr(self, self.rgb_name)(out, dt).float().reshape(p, d, -1)
+        return raw_rgb, raw_sigma
+
     def flat_weights(self, posenc=None, sh_dim=0):
         """(flat_w, meta) of the fused kernels, built from the parameters with
         differentiable ops; meta as pack_params_traced(..., posenc, sh_dim)."""
+        if self.condition:
+            raise ValueError("the fused trunk kernels have no view-conditioned branch")
         layers = self.layers()
         depth = self.net_depth
         flat = []

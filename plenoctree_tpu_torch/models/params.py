@@ -78,6 +78,20 @@ def init_trunk_params(rng, d_in, depth, width, skip, n_sigma, n_rgb, bias_std=0.
     return params
 
 
+def init_mlp_params(rng, mlp):
+    """Seeded flax-layout params of a TrunkMLP, the view-conditioned branch
+    included: every Dense_i in call order gets a glorot-uniform kernel drawn
+    from `rng` and a zero bias (flax's init; for a trunk without the branch
+    the draws of init_trunk_params)."""
+    return {
+        f"Dense_{i}": {
+            "kernel": glorot_uniform(rng, *layer.kernel.shape),
+            "bias": np.zeros(layer.bias.shape[0], np.float32),
+        }
+        for i, layer in enumerate(mlp.layers())
+    }
+
+
 def init_sg_params(rng, n):
     """The SG head's global parameters, seeded: sg_lambda = 1 [n] and
     sg_mu_spher [n, 2] = (theta, phi) uniform in [0, pi) x [0, 2 pi), as

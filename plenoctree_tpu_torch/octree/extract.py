@@ -1,14 +1,23 @@
 """NeRF -> PlenOctree extraction (library).
 
-Port of plenoctree_tpu/octree/extract.py for the SH, SG and RGBA heads
-without view directions: auto_scale (shrink the bbox to the sigma support),
-step1_build (dense grid evaluation, sigma or visibility-weight mask, tree
-build to init_grid_depth) and step2_fill (antialiased leaf fill: the mean of
-`samples_per_cell` jittered NeRF samples per leaf, alpha-weighted for RGBA
-trees). Tree bookkeeping is host numpy; the NeRF queries go through a
-`points_fn` on the device (`make_points_fn`: the model's raw trunk
-outputs, through the fused trunk kernel with --use_pallas on a GPU), and
-only sigma (step 0/1) or the per-leaf means (step 2) come back to the host.
+Port of plenoctree_tpu/octree/extract.py: auto_scale (shrink the bbox to
+the sigma support), step1_build (dense grid evaluation, sigma or
+visibility-weight mask, tree build to init_grid_depth) and step2_fill
+(antialiased leaf fill: the mean of `samples_per_cell` jittered NeRF
+samples per leaf, alpha-weighted for RGBA trees). Tree bookkeeping is host
+numpy; the NeRF queries go through a `points_fn` on the device
+(`make_points_fn`: the model's raw trunk outputs, through the fused trunk
+kernel with --use_pallas on a GPU), and only sigma (step 0/1) or the
+per-leaf means (step 2) come back to the host.
+
+A use_viewdirs model (nerf_sh/config/misc/proj) is converted by SH
+projection: steps 0 and 1 read sigma at zero view directions, and step 2
+projects each jittered sample's radiance onto SH of degree cfg.sh_deg by
+Monte-Carlo integration over cfg.projection_samples uniform directions
+(`project_nerf_to_sh`, ops/sh_project.py; `make_cross_fn` runs the trunk
+once per point and the view branch per point and direction). Its chunks,
+and the order of its draws (each chunk's jitter, then its directions, from
+one generator), are the JAX package's.
 
 The jitter comes from np.random.default_rng(20200823), drawn chunk by chunk
 as the JAX package draws it, so both packages sample the same points. The
@@ -20,8 +29,6 @@ against 11.2 s on threads at init_grid_depth 7 and 256 samples per leaf
 (`python -m plenoctree_tpu_torch.bench_fleet --step2_ab`, NVIDIA H100 80GB
 HBM3, 700 W).
 
-Not ported (raises NotImplementedError naming ROADMAP.md): use_viewdirs
-(the Monte-Carlo SH projection of a view-dependent NeRF, ops/sh_project.py).
 """
 
 import copy
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from plenoctree_tpu_torch.octree.grid_weight import calculate_grid_weights
+from plenoctree_tpu_torch.ops import sh_project
 
 # Default points per device dispatch: 2^20 on a GPU (12 MB in; each
 # dispatch is a host round trip: the points copied in, the eager posenc,
@@ -63,7 +71,8 @@ def _grid_points(reso, offset, invradius, z_min=None, z_max=None):
 def make_points_fn(model, device):
     """points [N, 3] (numpy f32) -> (raw_rgb [N, C*K], raw_sigma [N, 1]),
     f32 tensors on `device`: the fine trunk's raw outputs (no activation),
-    as the JAX CLI's eval_points_raw."""
+    as the JAX CLI's eval_points_raw; a use_viewdirs model is queried at
+    zero view directions (sigma does not depend on them)."""
 
     @torch.no_grad()
     def points_fn(points):
@@ -72,6 +81,21 @@ def make_points_fn(model, device):
         return raw_rgb.float(), raw_sigma.float()
 
     return points_fn
+
+
+def make_cross_fn(model, device):
+    """(points [P, 3], dirs [D, 3]) numpy -> (raw_rgb [P, D, 3], raw_sigma
+    [P, 1]) f32 tensors on `device`: a use_viewdirs model's raw outputs of
+    every point against every direction (the JAX CLI's eval_points_cross)."""
+
+    @torch.no_grad()
+    def cross_fn(points, dirs):
+        pts = torch.as_tensor(points, dtype=torch.float32).to(device)
+        d = torch.as_tensor(dirs, dtype=torch.float32).to(device)
+        raw_rgb, raw_sigma = model.eval_points_cross(pts, d)
+        return raw_rgb.float(), raw_sigma.float()
+
+    return cross_fn
 
 
 def _as_tensor(x, device):
@@ -85,14 +109,6 @@ def _eval_sigma(points_fn, grid, chunk):
         _, sigma = points_fn(grid[i : i + chunk])
         out[i : i + chunk] = torch.as_tensor(sigma).reshape(-1).float().cpu().numpy()
     return out
-
-
-def _check_supported(cfg):
-    if cfg.use_viewdirs:
-        raise NotImplementedError(
-            "extraction with use_viewdirs (SH projection of a view-dependent NeRF) "
-            "is not ported yet (ROADMAP.md)"
-        )
 
 
 def sg_extra_data(sg_lambda, sg_mu_spher):
@@ -202,11 +218,46 @@ def _jitter_chunks(tree, corner, size, S, chunk_size, rng):
     rng.bit_generator.advance(n * S * 3)
 
 
-def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
+def project_nerf_to_sh(cross_fn, sh_deg, points, projection_samples, rng):
+    """A view-dependent NeRF's radiance at points [P, 3] projected onto SH
+    of degree sh_deg: (coeffs [P, 3 * (sh_deg + 1)^2] in channel-major
+    order, the SH trees' layout; sigma [P, 1]), on cross_fn's device."""
+    coeffs, sigma = sh_project.project_function_nerf(
+        sh_deg, lambda dirs: cross_fn(points, dirs), projection_samples, rng
+    )
+    return coeffs.reshape(points.shape[0], -1), sigma
+
+
+def _step2_project(cfg, tree, cross_fn, sel, corner, size, rng, device):
+    """Step 2 for use_viewdirs models: for each chunk of leaves, draw its
+    jitter, then its projection directions, project every sample, and
+    average a leaf's samples (on the device; the leaf means go to the
+    host). The chunk holds chunk / (S * projection_samples / 10) leaves,
+    as in the JAX package."""
+    S = cfg.samples_per_cell
+    chunk_size = max(1, cfg.chunk // (S * max(cfg.projection_samples // 10, 1)))
+    for lo in range(0, sel.shape[0], chunk_size):
+        hi = min(lo + chunk_size, sel.shape[0])
+        u = rng.random((hi - lo, S, 3), dtype=np.float64)
+        t = corner[lo:hi, None, :] + u * size[lo:hi, None, None]
+        points = tree.tree2world(t.astype(np.float32)).reshape(-1, 3)
+        rgb, sigma = project_nerf_to_sh(cross_fn, cfg.sh_deg, points, cfg.projection_samples,
+                                        rng)
+        rgba = torch.cat([rgb, _as_tensor(sigma, device)], dim=-1)
+        rgba = rgba.reshape(hi - lo, S, tree.data_dim).mean(dim=1)
+        rows = sel[lo:hi]
+        tree.data[rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]] = (
+            rgba.cpu().numpy().astype(tree.data.dtype)
+        )
+    return tree
+
+
+def step2_fill(cfg, tree, points_fn, rng=None, device="cpu", cross_fn=None):
     """Antialiased leaf fill of the leaves at the tree's full depth: the
     mean of samples_per_cell jittered samples per leaf (alpha-weighted
-    colour for RGBA trees), reduced on `device`."""
-    _check_supported(cfg)
+    colour for RGBA trees), reduced on `device`; for a use_viewdirs model
+    (cfg.use_viewdirs) each sample is projected onto SH through
+    `cross_fn` (make_cross_fn) instead."""
     print("* Step 2: AA", cfg.samples_per_cell)
     rng = rng or np.random.default_rng(20200823)
     S = cfg.samples_per_cell
@@ -219,6 +270,11 @@ def step2_fill(cfg, tree, points_fn, rng=None, device="cpu"):
     sel = leaves_all[depth_all == tree.max_depth]
     corner = tree._cell_corner(sel).astype(np.float64)
     size = tree._cell_size(sel).astype(np.float64)
+    if cfg.use_viewdirs:
+        if cross_fn is None:
+            raise ValueError("step 2 of a use_viewdirs model needs cross_fn (make_cross_fn)")
+        with torch.no_grad():
+            return _step2_project(cfg, tree, cross_fn, sel, corner, size, rng, device)
     chunk_size = max(1, _point_chunk(cfg, device) // S)
 
     with torch.no_grad():

@@ -18,9 +18,12 @@ algorithm). The three stages keep their JAX structure:
   * Phase 2 (the CUDA kernel, kernels/tile_composite.py): composite every
     tile's pieces.
 
-Unported here (raise NotImplementedError): the NDC branch (LLFF
-forward-facing scenes) and multi-device sharding (`mesh`). ROADMAP.md lists
-both.
+NDC serving (LLFF forward-facing scenes, `ndc=make_ndc_config(...)`)
+converts each ray on the device as data/rays.py::convert_to_ndc does, so
+origins are per ray; the quad-group masks then come from the AABB of each
+group's segment endpoints, since NDC rays share no apex. Unported here
+(raises NotImplementedError): multi-device sharding (`mesh`), listed in
+ROADMAP.md.
 """
 
 import warnings
@@ -264,6 +267,33 @@ def _cross(a, b):
         ],
         dim=-1,
     )
+
+
+def _segment_aabb_planes(o, dn, tmin, tmax, ray_ok, Q):
+    """Quad-group planes for rays without a shared apex (NDC): each ray's
+    [tmin, tmax] span is a segment in tree space, so the AABB of a group's
+    segment endpoints bounds all of its segments. Four axis normals (+x,
+    -x, +y, -y) per group, with offsets from that AABB (misses excluded by
+    a 1e4 sentinel): a sound, segment-limited group test through the same
+    plane machinery (goff generalises n . apex). Returns gplanes [T, 16, 3]
+    and goff [T, 16]."""
+    n_tiles = o.shape[0]
+    axnorm = torch.tensor(
+        [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0]], dtype=_F32, device=o.device
+    )
+    gplanes = axnorm.repeat(4, 1)[None].expand(n_tiles, 16, 3)
+    e0 = _fma(tmin[..., None], dn, o)  # [T, RAYS, 3]
+    e1 = _fma(tmax[..., None], dn, o)
+    okr = ray_ok[..., None]
+    big = 1e4
+    elo = torch.minimum(torch.where(okr, e0, big), torch.where(okr, e1, big))
+    ehi = torch.maximum(torch.where(okr, e0, -big), torch.where(okr, e1, -big))
+    glo = elo.reshape(n_tiles, 4, Q * Q, 3).amin(dim=2)  # [T, 4, 3]
+    ghi = ehi.reshape(n_tiles, 4, Q * Q, 3).amax(dim=2)
+    goff = torch.stack(
+        [glo[..., 0], -ghi[..., 0], glo[..., 1], -ghi[..., 1]], dim=-1
+    ).reshape(n_tiles, 16)
+    return gplanes, goff
 
 
 def _floor_to_i32(x, lo, hi):
@@ -626,17 +656,15 @@ class TileRenderer:
         ndc=None,
         device="cuda",
     ):
-        if ndc is not None:
-            raise NotImplementedError(
-                "NDC (LLFF forward-facing) tile serving is not ported yet; "
-                "see ROADMAP.md"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device tile serving (mesh / --shard_devices) is not "
                 "ported yet; see ROADMAP.md"
             )
         self.device = resolve_device(device, "TileRenderer")
+        # LLFF forward-facing serving: {"focal", "width", "height"} of the
+        # capture (octree/renderer.py::make_ndc_config); None for pinhole.
+        self.ndc = ndc
         if output not in ("f32", "u8"):
             raise ValueError(f"output must be 'f32' or 'u8', got {output!r}")
         self.tree = tree
@@ -702,6 +730,33 @@ class TileRenderer:
 
     # -- tile inputs: ray generation, tree-space transform, phase 1 ---------
 
+    def _to_ndc(self, origin, d_world):
+        """data/rays.py::convert_to_ndc (near 1) of rays from one origin
+        [3] along d_world [..., 3], on the device: (o_ndc, d_ndc). Mirrors
+        the JAX renderer's rounding: XLA fuses the near-plane shift into an
+        FMA; the divisions are true f32 divisions (a host scalar over a
+        tensor would become a reciprocal times the scalar)."""
+        dev = d_world.device
+        fx2w = torch.tensor(2.0 * self.ndc["focal"] / self.ndc["width"], dtype=_F32, device=dev)
+        fy2h = torch.tensor(2.0 * self.ndc["focal"] / self.ndc["height"], dtype=_F32, device=dev)
+        two = torch.tensor(2.0, dtype=_F32, device=dev)
+        ow = origin.expand(d_world.shape)
+        tshift = -(1.0 + ow[..., 2]) / d_world[..., 2]
+        ow = _fma(tshift[..., None], d_world, ow)
+        oz = ow[..., 2]
+        o_ndc = torch.stack(
+            [-fx2w * ow[..., 0] / oz, -fy2h * ow[..., 1] / oz, 1.0 + two / oz], dim=-1
+        )
+        d_ndc = torch.stack(
+            [
+                -fx2w * (d_world[..., 0] / d_world[..., 2] - ow[..., 0] / oz),
+                -fy2h * (d_world[..., 1] / d_world[..., 2] - ow[..., 1] / oz),
+                -two / oz,
+            ],
+            dim=-1,
+        )
+        return o_ndc, d_ndc
+
     def make_tile_inputs_fn(self, height, width, fx, rcap, w1cap, ccap=None):
         """Returns fn (c2w, csr, base, extra_data, blk_bbox) ->
         (p2_args, n_total [T], n_pieces_pre [T], w1_over [T]): ray
@@ -752,13 +807,23 @@ class TileRenderer:
                 cam_dirs[..., 2:3],
                 _fma(rot[:, 1], cam_dirs[..., 1:2], rot[:, 0] * cam_dirs[..., 0:1]),
             )
+            if self.ndc is not None:
+                # convert_to_ndc (near 1) on the device: shift each ray to
+                # the near plane, then project; origins become per ray.
+                o_space, d_world = self._to_ndc(c2w[:3, 3], d_world)
+                o = _fma(o_space, self.invradius, self.offset)
+            else:
+                o = (c2w[:3, 3] * self.invradius + self.offset).expand(d_world.shape)
             viewdirs = d_world / _norm3(d_world)[..., None]
-            o = (c2w[:3, 3] * self.invradius + self.offset).expand(d_world.shape)
             d = viewdirs * self.invradius
             delta_scale = 1.0 / _norm3(d)
             dn = d * delta_scale[..., None]
-            # Floor |dn| at 1e-6 (sign-preserving): the kernel's slab test
-            # runs as box*invd - o*invd, which cancels badly for huge invd.
+            # Floor |dn| at 1e-6 (sign-preserving), not lower: the kernel's
+            # slab test runs as box*invd - o*invd, which cancels badly in
+            # f32 for huge invd (exactly axis-aligned rays: every NDC ray of
+            # a fronto-parallel camera; the JAX package measured +-60
+            # t-units of error at a 1e-9 floor). A ray with |dn| < 1e-6
+            # drifts < 2e-6 across the unit box, far inside a cell.
             safe_dn = torch.where(
                 dn.abs() < 1e-6, torch.where(dn < 0, -1e-6, 1e-6), dn
             )
@@ -776,19 +841,22 @@ class TileRenderer:
             span_lo = torch.where(ray_ok, tmin, float("inf")).amin(1)
             span_hi = torch.where(ray_ok, tmax, float("-inf")).amax(1)
 
-            # Quad-group frustum planes through the shared apex, oriented
-            # inward via the quad's mean direction.
-            gdirs = dn[:, gc_idx].reshape(n_tiles, 4, 4, 3)
-            A, B, Cq, D = (gdirs[:, :, k] for k in range(4))
-            nrm = torch.stack(
-                [_cross(A, B), _cross(B, D), _cross(D, Cq), _cross(Cq, A)], dim=2
-            )  # [T, 4 groups, 4 planes, 3]
-            dmean_g = gdirs.mean(dim=2)
-            sgn_n = torch.sign((nrm * dmean_g[:, :, None, :]).sum(-1, keepdim=True))
-            nrm = nrm * torch.where(sgn_n == 0, 1.0, sgn_n)
-            nrm = nrm / (_norm3(nrm)[..., None] + 1e-12)
-            gplanes = nrm.reshape(n_tiles, 16, 3)
-            goff = _dot3(gplanes, o[:, 0][:, None, :])  # n . apex
+            if self.ndc is not None:
+                gplanes, goff = _segment_aabb_planes(o, dn, tmin, tmax, ray_ok, Q)
+            else:
+                # Quad-group frustum planes through the shared apex,
+                # oriented inward via the quad's mean direction.
+                gdirs = dn[:, gc_idx].reshape(n_tiles, 4, 4, 3)
+                A, B, Cq, D = (gdirs[:, :, k] for k in range(4))
+                nrm = torch.stack(
+                    [_cross(A, B), _cross(B, D), _cross(D, Cq), _cross(Cq, A)], dim=2
+                )  # [T, 4 groups, 4 planes, 3]
+                dmean_g = gdirs.mean(dim=2)
+                sgn_n = torch.sign((nrm * dmean_g[:, :, None, :]).sum(-1, keepdim=True))
+                nrm = nrm * torch.where(sgn_n == 0, 1.0, sgn_n)
+                nrm = nrm / (_norm3(nrm)[..., None] + 1e-12)
+                gplanes = nrm.reshape(n_tiles, 16, 3)
+                goff = _dot3(gplanes, o[:, 0][:, None, :])  # n . apex
 
             (
                 chunk_c0, chunk_lo, chunk_hi, chunk_mask, n_kept_p,

@@ -53,6 +53,12 @@ def _unfilter(raw, filt, h, w, c):
     return out[1:, 1:].astype(np.uint8)
 
 
+def is_png(path):
+    """Whether the file starts with the PNG signature."""
+    with open(path, "rb") as f:
+        return f.read(len(_SIGNATURE)) == _SIGNATURE
+
+
 def read_png(path):
     """An 8-bit PNG as a uint8 array [H, W, C] (C = 1, 2, 3 or 4)."""
     with open(path, "rb") as f:

@@ -195,19 +195,22 @@ def test_port_n3tree_builds_like_jax():
 
 
 def test_viewdirs_and_sg_raise():
-    """use_viewdirs extraction still raises, in the library and the CLI; SG
-    trees are ported (tests/test_torch_sg.py): step2_fill fills an SG1 tree."""
+    """use_viewdirs extraction is ported (SH projection; its parity is
+    tests/test_torch_viewdirs.py): step2_fill of such a model without a
+    cross_fn raises, and the CLI refuses a use_viewdirs model without a
+    target SH degree; SG trees are ported (tests/test_torch_sg.py):
+    step2_fill fills an SG1 tree."""
     tree = N3Tree(data_dim=4, depth_limit=2, data_format="SH1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="cross_fn"):
         textract.step2_fill(_cfg(tconfig, use_viewdirs=True), tree, port_points_fn)
     sg = N3Tree(data_dim=4, depth_limit=2, data_format="SG1", extra_data=np.ones((1, 4)))
     textract.step2_fill(_cfg(tconfig), sg, port_points_fn)
     assert np.abs(sg.data).max() > 0
     from plenoctree_tpu_torch.cli import extract as cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="--sh_deg"):
         cli.main(["--train_dir", "/nonexistent", "--dataset", "synthetic", "--use_viewdirs",
-                  "--device", "cpu"])
+                  "--sh_deg", "-1", "--device", "cpu"])
 
 
 # A small f32 NeRF-SH (degree 1) without view directions, 4 x 32 trunks.

@@ -3,9 +3,10 @@ the CPU: task expansion equal to the JAX package's on every published task
 file, the results file parser, a fleet run of an SH16-form and an SG-form
 task (the published flags cut to init_grid_depth 4, 4 samples per cell, 1
 epoch, with --device cpu) writing the JAX fleet's result keys, the
-compress CLI on both trees, and a failed extraction recorded as the JAX
-fleet records it. Small sizes: 2 x 16 trunks, 4 + 4 samples, a
-blender-layout scene at 16 x 16.
+compress CLI on both trees, a task in tt_sh25.json's form on an
+NSVF-layout scene (its {%} scene templating, --bbox_from_data,
+--split_train), and a failed extraction recorded as the JAX fleet records
+it. Small sizes: 2 x 16 trunks, 4 + 4 samples, scenes at 16 x 16.
 """
 
 import copy
@@ -116,6 +117,44 @@ def test_fleet_runs_sh_and_sg_tasks(tmp_path):
     sg = np.load(os.path.join(out_dir, "sg", "tree.npz"))
     assert sh["quant_colors"].shape[0] == 4 and sg["quant_colors"].shape[0] == 4
     assert sg["extra_data"].shape == (4, 4) and str(sg["data_format"]) == "SG4"
+
+
+def test_fleet_runs_a_tt_sh25_task(tmp_path):
+    """octree/config/tt_sh25.json as it stands, its scenes cut to one, on an
+    NSVF-layout fixture (10 train, 2 test views) and a checkpoint the train
+    CLI wrote on nerf_sh/config/tt: the {%} substitution, the extraction's
+    --bbox_from_data --data_bbox_scale 1.2 (bbox.txt's centre and radius),
+    the optimizer's --split_train --split_holdout_prop 0.1 (one held-out
+    view); the published flags cut: init_grid_depth 3, 4 samples per cell,
+    1 epoch, the sizes above."""
+    from plenoctree_tpu_torch.data.synthetic import write_nsvf_dataset
+
+    spec = _spec("tt_sh25.json")
+    spec["data_root"], spec["train_root"] = str(tmp_path / "data"), str(tmp_path / "ckpt")
+    spec["scenes"] = spec["scenes"][:1]
+    scene = spec["scenes"][0]
+    write_nsvf_dataset(str(tmp_path / "data" / scene), n_train=10, n_test=2, resolution=16)
+    task = spec["scene_tasks"][0]
+    model = SMALL + ["--sh_deg", "1"]
+    _train(str(tmp_path / "ckpt" / scene), str(tmp_path / "data" / scene), task["config"], model)
+    i = task["opt_flags"].index("--num_epochs")
+    task["extr_flags"] += model + ["--init_grid_depth", "3", "--samples_per_cell", "4"]
+    task["opt_flags"] = task["opt_flags"][:i] + task["opt_flags"][i + 2:] + model + [
+        "--num_epochs", "1"]
+    task["eval_flags"] += model
+    task_file = tmp_path / "tasks.json"
+    task_file.write_text(json.dumps(spec))
+    task_manager.main([str(task_file), "--gpus", "0"])
+    (line,) = [json.loads(x) for x in (tmp_path / "results.txt").read_text().splitlines()]
+    assert line["scene"] == str(tmp_path / "ckpt" / scene)
+    assert "error" not in line and set(line) == RESULT_KEYS, line
+    assert math.isfinite(line["raw_psnr"]) and math.isfinite(line["psnr"])
+    from plenoctree_tpu_torch.octree import N3Tree
+
+    tree = N3Tree.load(os.path.join(line["scene"], "octrees", "tree.npz"))
+    # bbox.txt holds [-1, 1]^3: centre 0, radius 1 x data_bbox_scale 1.2
+    np.testing.assert_allclose(tree.invradius, 0.5 / 1.2, rtol=1e-6)
+    np.testing.assert_allclose(tree.offset, 0.5, rtol=1e-6)
 
 
 def test_bench_fleet_tasks_keep_published_flags():

@@ -223,6 +223,65 @@ def test_fused_trunk_variants_match_reference(posenc, sh_dim, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sh_dim", [0, 25])
+@pytest.mark.parametrize("n", [4096, 10000])
+def test_fused_trunk_sh25_head_matches_reference(sh_dim, n):
+    """The SH25 head (nerf_sh/config/tt: 1 + 75 columns, padded to 128),
+    raw coefficients and the in-kernel decode against a degree-4 SH basis
+    of random unit directions (the main path's basis, as chip_smoke.py's
+    phase 7 draws it: bench_trunk.inputs), against the plain versions. With
+    N(0, 1) values in place of a basis the 4096-row gradient check reads
+    rounding noise: 5.5e-2 from the plain version, the kernel 1.9x the
+    plain version's distance from an f64 evaluation (PERF.md)."""
+    _need_cuda()
+    flat, meta = _trunk(8, 256, 75, seed=n, sh_dim=sh_dim)
+    x, basis, gs, gr = bench_trunk.inputs(n, n + 1, None, sh_dim, "cuda", 75)
+    f0, b0 = F.fwd_launches, F.bwd_launches
+    s, r = F.fused_trunk(flat, x, meta, basis)
+    grads = F.fused_trunk_bwd(flat, x, gs, gr, meta, basis)
+    torch.cuda.synchronize()
+    assert (F.fwd_launches, F.bwd_launches) == (f0 + 1, b0 + 1)
+    rs, rr = F.fused_trunk_reference(flat, x, meta, basis)
+    assert r.shape == rr.shape == (n, 3 if sh_dim else 75)
+    assert float((s - rs).abs().max()) <= TRUNK_FWD_ATOL
+    assert float((r - rr).abs().max()) <= TRUNK_FWD_ATOL
+    ref = F.fused_trunk_bwd_reference(flat, x, gs, gr, meta, basis)
+    assert max(_grad_rel_errs(grads, ref)) <= TRUNK_GRAD_RTOL
+    _check_noise_floor(n, flat, x, gs, gr, meta, basis, grads, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [64, 201])
+def test_ndc_tile_kernel_matches_reference(res):
+    """NDC serving (per-ray origins, segment-AABB group masks): the tile
+    kernel against its plain version on a forward-facing pose, and a whole
+    NDC frame on the card against the CPU renderer's (within 1e-4)."""
+    _need_cuda()
+    from plenoctree_tpu_torch.octree.renderer import make_ndc_config
+
+    tree = build_scene_tree(depth=5, basis_dim=16, sh_noise=0.05, seed=3)
+    focal = 1.2 * res
+    ndc = make_ndc_config(res, res, focal)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[0, 3], c2w[1, 3] = 0.12, -0.05
+    r = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, ndc=ndc,
+                     device="cuda")
+    ti = r.make_tile_inputs_fn(res, res, focal, r.rcap, 16, r.ccap)
+    p2 = ti(c2w, r.index["csr"], r.index["base"], r.extra_data, r.index["blk_bbox"])[0]
+    before = K.launches
+    out = K.composite_tiles(*p2, r.index["soa"], **r._kernel_kw)
+    ref = K.composite_tiles_reference(*p2, r.index["soa"], **r._kernel_kw)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    assert torch.isfinite(out).all() and float((out - ref).abs().max()) <= ATOL
+    cpu = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, ndc=ndc,
+                       device="cpu", index=None)
+    a = r.render_persp(c2w, res, res, focal)
+    b = cpu.render_persp(c2w, res, res, focal)
+    assert np.abs(a - b).max() <= 1e-4 and np.abs(a - 1.0).max() > 0.1
+
+
+@pytest.mark.gpu
 def test_fused_trunk_autograd_with_basis_on_cuda():
     """FusedTrunkFn with both variants: the basis is saved for the backward
     and gets no gradient, nor do the raw points."""

@@ -7,9 +7,12 @@ and restore, the conversion slice extracts a tree from that checkpoint and
 optimizes it through their CLIs (the tile optimizer and the march), the
 eval CLI evaluates it through the march, and jax stays unimported; with cv2
 blocked too, a blender-layout scene loads and the eval CLI writes its
-frames as PNG files; and an SG model trains, the NeRF eval CLI evaluates
+frames as PNG files; an SG model trains, the NeRF eval CLI evaluates
 it, it is extracted, a fleet of one SG task runs (its subprocesses under
-the same block, through a sitecustomize.py) and its tree compresses."""
+the same block, through a sitecustomize.py) and its tree compresses; and
+NSVF and LLFF fixtures are written and loaded, the eval CLI serves an LLFF
+scene through the NDC tile path (--fast_eval), and a view-conditioned
+model projects onto SH."""
 
 import json
 import os
@@ -319,6 +322,79 @@ def test_sg_eval_fleet_and_compression_without_jax_stack(tmp_path):
     env["PYTHONPATH"] = os.pathsep.join([str(site), REPO, env.get("PYTHONPATH", "")])
     res = subprocess.run(
         [sys.executable, "-c", _SG_SCRIPT, str(tmp_path / "run")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+_CAPTURES_SCRIPT = r"""
+import sys
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "cv2", "tensorboardX"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import numpy as np
+from plenoctree_tpu_torch.cli import evaluate as eval_cli
+from plenoctree_tpu_torch.data import get_dataset
+from plenoctree_tpu_torch.data.synthetic import (build_scene_tree, write_llff_dataset,
+                                                 write_nsvf_dataset)
+from plenoctree_tpu_torch.kernels import tile_composite
+from plenoctree_tpu_torch.models.nerf import construct_nerf
+from plenoctree_tpu_torch.octree import extract
+from plenoctree_tpu_torch.utils import config as config_lib
+
+root = sys.argv[1]
+nsvf = write_nsvf_dataset(root + "/nsvf", n_train=3, n_test=2, resolution=16)
+args = config_lib.default_config(config="nerf_sh/config/tt")
+config_lib.update_flags(args)
+args.data_dir, args.factor = nsvf, 2
+ds = get_dataset("train", args)
+assert ds.images.shape == (3, 64, 3) and ds.bbox.shape == (7,), (ds.images.shape, ds.bbox)
+assert abs(ds.focal - 1.1 * 16 / 2) < 1e-9, ds.focal
+llff = write_llff_dataset(root + "/llff", n_views=6, resolution=16)
+with open(root + "/llff_tiny.yaml", "w") as f:
+    f.write("dataset: llff\nllffhold: 3\nfactor: 0\nwhite_bkgd: false\n")
+for spherify in (False, True):
+    args = config_lib.default_config(config=root + "/llff_tiny")
+    config_lib.update_flags(args)
+    args.data_dir, args.spherify, args.render_path = llff, spherify, True
+    case = next(get_dataset("test", args))
+    assert "pixels" not in case and case["rays"].origins.shape == (16, 16, 3)
+build_scene_tree(depth=3).save(root + "/tree.npz")
+tile_composite.launches = 0
+psnr, ssim, _ = eval_cli.main(["--input", root + "/tree.npz", "--config", root + "/llff_tiny",
+                               "--data_dir", llff, "--fast_eval", "--device", "cpu"])
+assert np.isfinite(psnr) and np.isfinite(ssim) and tile_composite.launches == 0  # plain on CPU
+cfg = config_lib.default_config(config="nerf_sh/config/misc/proj")
+config_lib.update_flags(cfg)
+cfg.net_depth, cfg.net_width, cfg.net_width_condition = 2, 16, 8
+model = construct_nerf(cfg, seed=0)
+cross = extract.make_cross_fn(model, "cpu")
+coeffs, sigma = extract.project_nerf_to_sh(cross, cfg.sh_deg, np.zeros((2, 3), np.float32), 64,
+                                           np.random.default_rng(0))
+assert tuple(coeffs.shape) == (2, 75) and tuple(sigma.shape) == (2, 1)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu",
+                "PIL", "cv2", "imageio") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_nsvf_llff_and_ndc_serving_without_jax_stack(tmp_path):
+    """NSVF and LLFF fixtures written (utils/png.py) and loaded (NDC,
+    spherify, the render path), an LLFF scene evaluated by the eval CLI
+    through the NDC tile path (--fast_eval, a config with llff in its
+    path), and SH projection of a proj.yaml model, with the JAX stack, PIL,
+    imageio and cv2 blocked."""
+    _run_blocked_args(_CAPTURES_SCRIPT, str(tmp_path))
+
+
+def _run_blocked_args(script, *args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", script, *args], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]

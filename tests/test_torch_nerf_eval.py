@@ -111,7 +111,9 @@ def test_eval_cli_matches_jax(scene, tmp_path):
 
 def test_eval_cli_skip_and_no_output(scene, tmp_path):
     """--approx_eval_skip 2 evaluates view 0 only; --nosave_output writes no
-    PNGs; --render_path and LLFF raise, naming ROADMAP.md A4."""
+    PNGs; --render_path, ported now, is refused for a blender scene as the
+    loader refuses it (the LLFF render path: tests/test_torch_datasets.py),
+    and --dataset llff on a blender scene's directory finds no images/."""
     d = str(tmp_path / "t")
     _write_checkpoint(d, 1)
     common = MODEL + ["--dataset", "blender", "--data_dir", scene, "--train_dir", d,
@@ -120,9 +122,10 @@ def test_eval_cli_skip_and_no_output(scene, tmp_path):
     assert not os.path.exists(os.path.join(d, "test_preds"))
     full, _ = eval_cli.main(common)
     assert psnr != full and np.isfinite(psnr)
-    for extra in (["--render_path"], ["--dataset", "llff"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            eval_cli.main(common + extra)
+    with pytest.raises(ValueError, match="render_path cannot be used for the blender"):
+        eval_cli.main(common + ["--render_path"])
+    with pytest.raises(ValueError, match="doesn't exist"):
+        eval_cli.main(common + ["--dataset", "llff"])
 
 
 def test_eval_cli_polls_until_max_steps(scene, tmp_path, monkeypatch):

@@ -114,7 +114,7 @@ def test_build_scene_tree_matches_test_recipe():
     assert 0.04 < hi.std() < 0.06
 
 
-def test_synthetic_dataset_matches_jax():
+def test_synthetic_dataset_matches_jax(tmp_path):
     from plenoctree_tpu.data.datasets import Synthetic as JaxSynthetic
 
     cfg = config.default_config(dataset="synthetic")
@@ -126,8 +126,18 @@ def test_synthetic_dataset_matches_jax():
     assert (out.h, out.w, out.focal, out.size) == (ref.h, ref.w, ref.focal, ref.size)
     batch = next(out)
     np.testing.assert_array_equal(batch["pixels"], ref.images[0])
-    with pytest.raises(NotImplementedError):
-        get_dataset("test", config.default_config(dataset="llff"))
+    # LLFF is ported (its parity: tests/test_torch_datasets.py): a missing
+    # image folder raises, a written capture loads.
+    from plenoctree_tpu_torch.data.synthetic import write_llff_dataset
+
+    with pytest.raises(ValueError, match="doesn't exist"):
+        get_dataset("test", config.default_config(dataset="llff", data_dir=str(tmp_path)))
+    write_llff_dataset(str(tmp_path / "llff"), n_views=4, resolution=8)
+    llff = get_dataset("test", config.default_config(
+        dataset="llff", data_dir=str(tmp_path / "llff"), factor=0))
+    assert llff.size == 1 and llff.rays.origins.shape == (1, 8, 8, 3)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_dataset("test", config.default_config(dataset="nope"))
 
 
 def test_flags_match_jax_defaults():

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from plenoctree_tpu_torch.data.datasets import _halve
+from plenoctree_tpu_torch.data.datasets import _box_mean
 from plenoctree_tpu_torch.utils.png import read_png, write_png
 
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
@@ -103,7 +103,7 @@ def test_read_png_refuses_other_formats(kind, tmp_path):
 def test_halve_matches_cv2_inter_area(shape):
     img = np.random.default_rng(6).random(shape, dtype=np.float32)
     want = cv2.resize(img, (shape[1] // 2, shape[0] // 2), interpolation=cv2.INTER_AREA)
-    got = _halve(img)
+    got = _box_mean(img, 2)
     assert got.shape == want.shape and got.dtype == np.float32
     assert float(np.abs(got - want).max()) <= 1e-6
 

@@ -286,14 +286,15 @@ def test_write_back_round_trip(pairs):
 
 
 def test_cli_unported_paths_and_missing_gpu_raise(tmp_path, trees):
-    """The LLFF loader is not ported (an LLFF config goes to the march
-    optimizer: tests/test_torch_march_opt.py), and both optimizers raise on
+    """The LLFF loader is ported (tests/test_torch_datasets.py; an LLFF
+    config goes to the march optimizer: tests/test_torch_march_opt.py): a
+    directory without its images folder raises; both optimizers raise on
     --device cuda without a GPU."""
     from plenoctree_tpu_torch.cli import optimize as cli
 
     path = str(tmp_path / "tree.npz")
     trees["sh1"].save(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="doesn't exist"):
         cli.main(["--input", path, "--dataset", "llff", "--data_dir", str(tmp_path), "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")

@@ -287,10 +287,133 @@ def test_empty_tree_renders_background():
     assert np.allclose(out, 1.0)
 
 
+# -- NDC (LLFF forward-facing) serving ------------------------------------
+
+
+def _rot(axis, angle):
+    c, s = np.cos(angle), np.sin(angle)
+    m = np.eye(3)
+    i, j = [(1, 2), (0, 2), (0, 1)][axis]
+    m[i, i] = m[j, j] = c
+    m[i, j], m[j, i] = -s, s
+    return m
+
+
+def _ff_pose(dx, dy, yaw, pitch):
+    """A forward-facing camera at (dx, dy, 0) looking down -z, turned by
+    yaw (about y) and pitch (about x)."""
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = (_rot(1, yaw) @ _rot(0, pitch)).astype(np.float32)
+    c2w[0, 3], c2w[1, 3] = dx, dy
+    return c2w
+
+
+_NDC_RENDERERS = {}
+
+
+def _ndc_pair(trees, name, res, focal, grid_c=GRID_C):
+    """(jax, port) NDC renderers sharing one index."""
+    from plenoctree_tpu.octree.renderer import make_ndc_config
+
+    key = (name, res, focal, grid_c)
+    if key not in _NDC_RENDERERS:
+        ndc = make_ndc_config(res, res, focal)
+        jr = J.TileRenderer(trees[name], step_size=1e-4, grid_c=grid_c, use_bf16=False, ndc=ndc)
+        pr = P.TileRenderer(trees[name], step_size=1e-4, grid_c=grid_c, device="cpu",
+                            index=P.index_from_jax(jr.index), ndc=dict(ndc))
+        _NDC_RENDERERS[key] = (jr, pr)
+    return _NDC_RENDERERS[key]
+
+
+@pytest.mark.parametrize("res,pose", [(33, 0), (33, 1), (41, 0), (41, 1)])
+def test_ndc_tile_inputs_match_jax(trees, res, pose):
+    """NDC ray generation (per-ray origins), tree transform, basis and
+    phase 1 with the segment-endpoint AABB group planes, against the JAX
+    renderer's, at odd sizes and slightly tilted, offset forward-facing
+    cameras: piece lists, metas and counters equal, floats within 1e-6
+    (relative above 1), as test_tile_inputs_match_jax. (At a camera with
+    y = 0 every NDC ray's y direction is 0 up to rounding, so the sign of
+    its floored invd is rounding noise in both packages; these poses keep
+    every component away from 0. Such a pose is the frame tests' first.)"""
+    focal = 1.2 * res
+    jr, pr = _ndc_pair(trees, "sh16", res, focal)
+    c2w = _ff_pose(*[(0.15, 0.1, 0.06, 0.04), (-0.2, 0.07, -0.05, 0.03)][pose])
+    idx = jr.index
+    ref = jax.jit(jr.make_tile_inputs_fn(res, res, focal, jr.rcap, 8, jr.ccap))(
+        jnp.asarray(c2w), idx["csr"], idx["base"], jr.extra_data, idx["blk_bbox"]
+    )
+    pidx = pr.index
+    out = pr.make_tile_inputs_fn(res, res, focal, pr.rcap, 8, pr.ccap)(
+        c2w, pidx["csr"], pidx["base"], pr.extra_data, pidx["blk_bbox"]
+    )
+    names = ("meta", "c0", "lo", "hi", "mask", "o", "invd", "aux", "mdir", "basis")
+    for name, a, b in zip(names, ref[0], out[0]):
+        a, b = np.asarray(a), b.numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.dtype.kind == "i":
+            np.testing.assert_array_equal(b, a, err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=name)
+    o = out[0][5].numpy()
+    assert np.abs(o[:, 1:, :3] - o[:, :1, :3]).max() > 1e-3  # origins are per ray
+    assert int(np.asarray(ref[0][0])[:, 0, 0].sum()) > 0
+    for a, b in zip(ref[1:], out[1:]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("name,res", [("sh1", 33), ("sh16", 41)])
+def test_ndc_render_persp_matches_jax_and_march(trees, name, res):
+    """Whole NDC frames against the JAX TileRenderer(ndc=...) (max abs
+    <= 1e-4, as test_render_persp_matches_jax) and against the port's exact
+    march in NDC mode (> 40 dB, the bound of the JAX package's
+    test_ndc_matches_march): a fronto-parallel camera and a tilted one."""
+    from plenoctree_tpu_torch.octree.renderer import VolumeRenderer as PortVolumeRenderer
+
+    focal = 40.0 * res / 32
+    jr, pr = _ndc_pair(trees, name, res, focal)
+    vr = PortVolumeRenderer(trees[name], step_size=1e-4, ndc=dict(pr.ndc), device="cpu")
+    for c2w in (_ff_pose(0.1, 0.0, 0.0, 0.0), _ff_pose(0.15, 0.05, 0.06, 0.02)):
+        ref = jr.render_persp(c2w, res, res, focal)
+        out = pr.render_persp(c2w, res, res, focal)
+        assert out.shape == ref.shape == (res, res, 3)
+        assert np.abs(out - ref).max() <= 1e-4
+        march = np.clip(vr.render_persp(c2w, res, res, focal), 0, 1)
+        assert _psnr(np.clip(out, 0, 1), march) > 40.0
+        assert np.abs(out - 1.0).max() > 0.1  # the scene is in view
+
+
+def test_ndc_quad_mask_is_conservative(trees):
+    """NDC group masks may only skip provably-no-hit work: the plain
+    compositing with every mask bit set is bitwise equal to the masked one,
+    and some valid piece's mask is below 15 (non-vacuous), as the JAX
+    package's test_ndc_quad_mask_is_conservative."""
+    res, focal = 32, 40.0
+    _, pr = _ndc_pair(trees, "sh1", res, focal, grid_c=8)
+    c2w = _ff_pose(0.1, 0.0, 0.0, 0.0)
+    idx = pr.index
+    p2, _, _, _ = pr.make_tile_inputs_fn(res, res, focal, pr.rcap, 8, pr.ccap)(
+        c2w, idx["csr"], idx["base"], pr.extra_data, idx["blk_bbox"]
+    )
+    meta, masks = p2[0].numpy(), p2[4].numpy()
+    valid = np.arange(masks.shape[-1])[None, None, :] < meta[:, :, :1]
+    assert (masks[valid] > 0).all()  # zero-mask pieces were compacted
+    assert (masks[valid] < 15).any(), "NDC masks are vacuously all-on"
+    masked = K.composite_tiles_reference(*p2, idx["soa"], **pr._kernel_kw)
+    full = list(p2)
+    full[4] = torch.full_like(p2[4], 15)
+    np.testing.assert_array_equal(
+        K.composite_tiles_reference(*full, idx["soa"], **pr._kernel_kw).numpy(), masked.numpy()
+    )
+
+
 def test_unported_branches_and_missing_gpu_raise(renderers):
+    """NDC serving is ported (its parity: the NDC tests below): an NDC
+    renderer builds; multi-device serving (mesh) still raises, and so does
+    device='cuda' without a GPU."""
     _, pr = renderers["sh1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.TileRenderer(pr.tree, ndc={"width": 8, "height": 8, "focal": 8.0}, device="cpu")
+    ndc = P.TileRenderer(pr.tree, ndc={"width": 8, "height": 8, "focal": 8.0}, device="cpu",
+                         grid_c=GRID_C, index=pr.index)
+    assert ndc.ndc == {"width": 8, "height": 8, "focal": 8.0}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.TileRenderer(pr.tree, mesh=object(), device="cpu")
     if torch.cuda.is_available():

@@ -237,11 +237,18 @@ def test_nerf_call(dtype, monkeypatch):
 
 
 def test_unported_heads_raise():
-    """The view-conditioned head still raises; the SG head is ported (its
-    parity is tests/test_torch_sg.py) and builds; SH and SG together are
-    refused, as the JAX package asserts."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NerfModel(tconfig.default_config(**dict(BASE, use_viewdirs=True, sh_deg=-1)))
+    """Every head is ported now: the view-conditioned one builds with its
+    branch (Dense_0 .. Dense_9: 6 trunk, sigma, bottleneck, one condition
+    layer, rgb; its parity is tests/test_torch_viewdirs.py), and so does the
+    SG head (tests/test_torch_sg.py); SH and SG together, and SG with view
+    directions, are refused, as the JAX package asserts."""
+    model = NerfModel(tconfig.default_config(**dict(BASE, use_viewdirs=True, sh_deg=-1)))
+    assert sorted(params_to_flax(model)["MLP_1"], key=lambda k: int(k[6:])) == [
+        f"Dense_{i}" for i in range(10)]
+    assert model.MLP_0.Dense_7.kernel.shape == (64, 64)  # the bottleneck
+    assert model.MLP_0.Dense_8.kernel.shape == (64 + 27, 128)  # [bottleneck, posenc(dir)]
+    with pytest.raises(ValueError, match="up to one of"):
+        NerfModel(tconfig.default_config(**dict(BASE, use_viewdirs=True, sg_dim=4, sh_deg=-1)))
     model = NerfModel(tconfig.default_config(**dict(BASE, sg_dim=4, sh_deg=-1)))
     assert model.sg_mu_spher.shape == (4, 2)
     with pytest.raises(ValueError, match="up to one of"):
