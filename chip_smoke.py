@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: tile serving,
 NeRF-SH training, PlenOctree conversion (extraction, tile optimization),
 the gather probes, the exact march (evaluation and optimization), the SG
-head, the NeRF eval, the conversion fleet and compression, and real-capture
+head, the NeRF eval, the conversion fleet and compression, real-capture
 layouts: NSVF (octree/config/tt_sh25.json), LLFF with NDC serving, and the
-view-conditioned head with extraction by SH projection.
+view-conditioned head with extraction by SH projection; and the JAX
+package's checkpoints, orbit video, mesh and the train CLI's profiler.
 
     python3 chip_smoke.py
 
@@ -164,6 +165,37 @@ Phases, one line each with its wall time:
      (use_viewdirs, the plain path: no trunk kernel launch) for 200 steps,
      then the extract CLI by SH projection to degree 4 (an SH25 tree,
      init_grid_depth PROJ_DEPTH): the tree reloads, its eval PSNR finite.
+
+ 29. JAX checkpoints on the card: the committed fixtures that the JAX
+     package's savers wrote (tests/torch_fixtures/jax_ckpt: an orbax
+     TrainState directory, an original JaxNeRF tree as orbax and as
+     msgpack; a blender-config model cut to 2 x 16) restored through
+     get_model_state(restore=True) on cuda: params, Adam mu, nu and count,
+     and step bitwise equal to the fixture's want.npz (the JaxNeRF trees
+     with a fresh Adam); one 200x200 render of the synthetic scene from the
+     TrainState, finite;
+ 30. gen_video main path: the gen_video CLI in-process on phase 8's
+     checkpoint_200 at the published 800x800, GEN_VIDEO_VIEWS of the
+     published 40 views, --write_poses: the PNGs read back at 800x800, the
+     poses file's poses on the radius, frame 0 bitwise equal to
+     engine.render_image of pose 0; s/frame and the mp4 line printed;
+ 31. gen_mesh main path: the gen_mesh CLI in-process on that checkpoint with
+     --use_pallas --compute_dtype bfloat16 at the published defaults (reso
+     300, c1 -2, c2 2, iso 6.0, point_chunk 720720): the trunk forward
+     kernel launched GEN_MESH_LAUNCHES times, mesh.obj non-empty, vertices
+     and triangles, wall-clock per step (grid, sigma, marching, OBJ), peak
+     device memory; where the model's sigma never reaches 6.0 the CLI runs
+     again at GEN_MESH_FALLBACK_ISO of its maximum (a cut, printed); then one
+     720,720-row dispatch of the grid through the forward kernel against the
+     plain version (TRUNK_FWD_ATOL times the sigma's scale, max(1, max
+     |sigma|): the bound was measured on outputs of magnitude ~0.8), kernel /
+     plain / F.linear-chain ms and
+     the bound, as phase 7; then the marching on the card against the
+     marching on the CPU on a 64^3 sub-volume of the grid, bitwise;
+ 32. train extras: the train CLI for 12 steps of the blender config with
+     the fused kernels, --profile_start_step 5 --profile_steps 3
+     --render_every 6: timings.txt parses (total hours > 0), and the Chrome
+     trace under train_dir/profile/ names both trunk kernels.
 
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
@@ -346,6 +378,15 @@ NDC_FOCAL = 1.25 * RES  # the JAX test's 40 / 32
 N_NDC_ORBIT = 8
 PROJ_CONFIG = "nerf_sh/config/misc/proj"  # use_viewdirs, projected to SH degree 4
 PROJ_DEPTH = 5  # extraction's init_grid_depth, cut from 8
+JAX_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jax_ckpt")
+JAX_FIXTURE_FLAGS = ["--net_depth", "2", "--net_width", "16"]  # make_jax_checkpoints.py
+GEN_VIDEO_VIEWS = 4  # of the published 40
+GEN_MESH_RESO = 300
+GEN_MESH_CHUNK = 720720
+GEN_MESH_LAUNCHES = -(-GEN_MESH_RESO ** 3 // GEN_MESH_CHUNK)  # 38
+GEN_MESH_FALLBACK_ISO = 0.5  # x the grid's max sigma, where it stays below 6.0
+MARCH_SUB = 64  # the sub-volume held card against CPU
+EXTRAS_STEPS = 12
 # The projection's chunk: 10 leaves per dispatch (8 samples x 1,000 of the
 # 10,000 directions each, the JAX chunking rule), where the published 8192
 # makes one leaf per dispatch (34k dispatches: 127 s at depth 5).
@@ -2064,6 +2105,234 @@ def viewdirs_main_path():
         raise RuntimeError(f"bad projection extraction eval {results}")
 
 
+def jax_checkpoints_on_card():
+    """Phase 29: the committed checkpoints the JAX package's savers wrote,
+    restored on the card through get_model_state(restore=True); bitwise
+    against want.npz; then one 200x200 render from the TrainState."""
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.data.rays import generate_rays
+    from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    t0 = time.time()
+    want = np.load(os.path.join(JAX_FIXTURES, "want.npz"))
+    seconds, model = {}, None
+    for name in ("train_state", "jaxnerf_orbax", "jaxnerf_msgpack"):
+        cfg = config_lib.parse_flags(train_cli.build_parser(), [
+            "--config", "nerf_sh/config/blender", "--train_dir", os.path.join(JAX_FIXTURES, name),
+            *JAX_FIXTURE_FLAGS])
+        t1 = time.perf_counter()
+        m, state = get_model_state(cfg, restore=True, device="cuda")
+        seconds[name] = round(time.perf_counter() - t1, 3)
+        group = "train_state" if name == "train_state" else "jaxnerf"
+        groups = [("params", state.params)]
+        if name == "train_state":
+            groups += [("mu", state.opt_state["mu"]), ("nu", state.opt_state["nu"])]
+            count = int(want["train_state/count"])
+        else:
+            count = 0
+            if any(bool(t.any()) for m_ in ("mu", "nu") for t in state.opt_state[m_].values()):
+                raise RuntimeError(f"{name}: the imported Adam moments are not fresh")
+        for g, tensors in groups:
+            for k, t in tensors.items():
+                if not (t.is_cuda and np.array_equal(t.detach().cpu().numpy(),
+                                                      want[f"{group}/{g}/{k}"])):
+                    raise RuntimeError(f"{name}: {g}/{k} differs from the fixture")
+        if state.step != int(want[f"{group}/step"]) or state.opt_state["count"] != count:
+            raise RuntimeError(f"{name}: step {state.step}, count {state.opt_state['count']}")
+        if name == "train_state":
+            model = m
+    _, c2ws, focal = render_synthetic_scene("test", 4, EVAL_RES, True, 2.0, 6.0)
+    rays = generate_rays(EVAL_RES, EVAL_RES, focal, c2ws[:1])
+    rgb, _, _ = engine.render_image(model.eval(), type(rays)(*[r[0] for r in rays]),
+                                    device="cuda")
+    phase("JAX checkpoints on the card", t0, fixtures=len(seconds),
+          restore_s=json.dumps(seconds), render_shape=list(rgb.shape),
+          render_finite=bool(np.isfinite(rgb).all()), render_mean=float(rgb.mean()))
+    if rgb.shape != (EVAL_RES, EVAL_RES, 3) or not np.isfinite(rgb).all():
+        raise RuntimeError("bad render from the JAX TrainState")
+
+
+def gen_video_main_path(train_dir):
+    """Phase 30: the gen_video CLI on phase 8's checkpoint at 800x800."""
+    import io
+
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.cli import gen_video
+    from plenoctree_tpu_torch.data.rays import generate_rays
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.utils import config as config_lib
+    from plenoctree_tpu_torch.utils.png import read_png
+
+    t0 = time.time()
+    poses_path = os.path.join(train_dir, "video_poses.txt")
+    argv = ["--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", *TRAINED_MODEL_FLAGS,
+            "--num_views", str(GEN_VIDEO_VIEWS), "--write_poses", poses_path]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        video_dir = gen_video.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mp4_line = [ln.strip() for ln in out.getvalue().splitlines() if "mp4" in ln or "video" in ln]
+    frames = [read_png(os.path.join(video_dir, "frames", f"{i:04}.png"))
+              for i in range(GEN_VIDEO_VIEWS)]
+    poses = np.loadtxt(poses_path).reshape(-1, 4, 4)
+    radii = np.linalg.norm(poses[:, :3, 3], axis=-1)
+    cfg = config_lib.parse_flags(gen_video.build_parser(), argv)
+    focal = 0.5 * cfg.width / np.tan(0.5 * cfg.camera_angle_x)
+    pose0 = gen_video.orbit_poses(cfg.num_views, cfg.elevation, cfg.radius, cfg.up_axis)[:1]
+    rays = generate_rays(cfg.width, cfg.height, focal, pose0)
+    model, _ = get_model_state(cfg, seed=gen_video.SEED, restore=True, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rgb, _, _ = engine.render_image(model.eval(), type(rays)(*[r[0] for r in rays]),
+                                    chunk=cfg.chunk, device="cuda")
+    s_render = time.perf_counter() - t1
+    frame0 = (np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+    same = bool(np.array_equal(frame0, frames[0]))
+    phase("gen_video main path", t0, views=GEN_VIDEO_VIEWS, res=cfg.width,
+          s_per_frame_cli=wall / GEN_VIDEO_VIEWS, s_render_frame0=s_render,
+          png_shapes=sorted({f.shape for f in frames}), poses=len(poses),
+          radius_err=float(np.abs(radii - cfg.radius).max()), frame0_bitwise=same,
+          mp4=repr(mp4_line[-2:] if len(mp4_line) > 1 else mp4_line))
+    if any(f.shape != (RES, RES, 3) for f in frames) or len(frames) != GEN_VIDEO_VIEWS:
+        raise RuntimeError("gen_video frames are not 800x800 RGB")
+    if len(poses) != GEN_VIDEO_VIEWS or not np.abs(radii - cfg.radius).max() < 1e-5:
+        raise RuntimeError(f"bad poses file: {len(poses)} poses, radii {radii}")
+    if not same:
+        raise RuntimeError("gen_video frame 0 differs from engine.render_image of pose 0")
+
+
+def gen_mesh_main_path(train_dir):
+    """Phase 31: the gen_mesh CLI on phase 8's checkpoint through kernel #1
+    at the published 300^3; then one dispatch kernel vs plain, and the
+    marching card vs CPU on a sub-volume."""
+    import io
+
+    from plenoctree_tpu_torch.cli import gen_mesh
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.ops.marching import marching_tetrahedra
+    from plenoctree_tpu_torch.ops.posenc import posenc
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    t0 = time.time()
+    argv = ["--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", *TRAINED_MODEL_FLAGS,
+            "--reso", str(GEN_MESH_RESO), "--c1", "-2", "--c2", "2", "--iso", "6.0",
+            "--point_chunk", str(GEN_MESH_CHUNK)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.fwd_launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = gen_mesh.main(argv)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    iso, cut = 6.0, None
+    if res["sigma_max"] < 6.0:
+        iso = GEN_MESH_FALLBACK_ISO * res["sigma_max"]
+        cut = f"max sigma {res['sigma_max']} < 6.0: iso {iso}"
+        print(f"[phase] gen_mesh: {cut}", flush=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = gen_mesh.main(argv[:-4] + ["--iso", str(iso), "--point_chunk",
+                                             str(GEN_MESH_CHUNK)])
+    size = os.path.getsize(res["path"])
+    phase("gen_mesh main path", t0, reso=GEN_MESH_RESO, point_chunk=GEN_MESH_CHUNK,
+          fwd_launches=launches, want_launches=GEN_MESH_LAUNCHES, iso=iso, cut=repr(cut),
+          sigma_max=res["sigma_max"], vertices=res["vertices"], triangles=res["triangles"],
+          obj_mb=size / 2**20, seconds=json.dumps({k: round(v, 3) for k, v in res["seconds"].items()}),
+          peak_mem_gib=peak / 2**30)
+    if launches != GEN_MESH_LAUNCHES:
+        raise RuntimeError(f"gen_mesh launched the trunk kernel {launches} times, "
+                           f"want {GEN_MESH_LAUNCHES}")
+    if size <= 0 or res["vertices"] <= 0 or res["triangles"] <= 0:
+        raise RuntimeError(f"empty mesh: {res}")
+
+    # One dispatch: the grid's first 720,720 points through the kernel and
+    # the plain version, on the restored fine trunk.
+    t0 = time.time()
+    cfg = config_lib.parse_flags(gen_mesh.build_parser(), argv)
+    model, _ = get_model_state(cfg, restore=True, device="cuda")
+    mlp = model.MLP_1
+    flat, meta = mlp.flat_weights(None, 0)
+    flat = [w.detach() for w in flat]
+    axes = gen_mesh.grid_axes([GEN_MESH_RESO] * 3, [-2.0] * 3, [2.0] * 3)
+    pts = gen_mesh.device_grid(axes, "cuda")[:GEN_MESH_CHUNK]
+    x = posenc(pts, model.min_deg_point, model.max_deg_point, model.legacy_posenc_order)
+    s_k, _ = fused_mlp.fused_trunk(flat, x, meta)
+    s_p, _ = fused_mlp.fused_trunk_reference(flat, x, meta)
+    torch.cuda.synchronize()
+    err = float((s_k - s_p).abs().max())
+    # TRUNK_FWD_ATOL was measured on outputs of magnitude ~0.8; a bf16
+    # activation that rounds the other way moves an output in proportion
+    # to its scale, and the trained sigma reaches ~10 here.
+    scale = max(1.0, float(s_p.abs().max()))
+    tol = TRUNK_FWD_ATOL * scale
+    ms = cuda_ms(lambda: fused_mlp.fused_trunk(flat, x, meta), 10)
+    plain_ms = cuda_ms(lambda: fused_mlp.fused_trunk_reference(flat, x, meta), 3)
+    gs = torch.zeros_like(s_k)
+    gr = torch.zeros((x.shape[0], meta["d_out"] - meta["n_sigma"]), device="cuda")
+    lib_ms, _ = trunk_library(flat, x, gs, gr, meta)
+    bound = trunk_bound(flat, meta, x.shape[0], 1)
+    # The marching, card against CPU, on a 64^3 sub-volume the surface crosses.
+    vol = res["volume"]
+    inside = (vol > iso).float()
+    c = torch.nonzero(inside).float().mean(0).round().long() if inside.any() else \
+        torch.full((3,), GEN_MESH_RESO // 2, device=vol.device)
+    lo = [int(min(max(int(v) - MARCH_SUB // 2, 0), GEN_MESH_RESO - MARCH_SUB)) for v in c]
+    sub = vol[lo[0]:lo[0] + MARCH_SUB, lo[1]:lo[1] + MARCH_SUB, lo[2]:lo[2] + MARCH_SUB]
+    vg, tg = marching_tetrahedra(sub, iso)
+    vc, tc = marching_tetrahedra(sub.cpu(), iso)
+    march_equal = bool(torch.equal(vg.cpu(), vc) and torch.equal(tg.cpu(), tc))
+    phase("gen_mesh dispatch kernel vs plain", t0, rows=GEN_MESH_CHUNK, max_abs_err=err,
+          sigma_scale=scale, tol=tol, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          bound_ms=bound[0], bound_by=bound[1], march_sub=MARCH_SUB, march_lo=lo,
+          march_sub_triangles=len(tc), march_card_cpu_bitwise=march_equal)
+    if not err <= tol:
+        raise RuntimeError(f"gen_mesh dispatch: kernel sigma off by {err} > {tol}")
+    if not march_equal or len(tc) == 0:
+        raise RuntimeError(f"marching on the card differs from the CPU ({len(tc)} triangles)")
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound": bound}
+
+
+def train_extras_path():
+    """Phase 32: the train CLI's timings.txt and profiler hooks."""
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.utils import io as io_utils
+
+    t0 = time.time()
+    train_dir = tempfile.mkdtemp(prefix="extras_", dir=os.path.join(ROOT, "build", "smoke"))
+    with open(os.path.join(train_dir, "train.log"), "w") as log, contextlib.redirect_stdout(log):
+        train_cli.main([
+            "--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--train_dir", train_dir, "--device", "cuda", *TRAINED_MODEL_FLAGS,
+            "--batch_size", str(BENCH_BATCH), "--image_batching",
+            "--max_steps", str(EXTRAS_STEPS), "--print_every", "1",
+            "--save_every", str(EXTRAS_STEPS), "--render_every", "6",
+            "--profile_start_step", "5", "--profile_steps", "3",
+        ])
+    torch.cuda.synchronize()
+    timings = os.path.join(train_dir, "timings.txt")
+    steps = [s for s, _ in io_utils.parse_timings(timings)]
+    hours = io_utils.timings_total_hours(timings)
+    traces = sorted(os.listdir(os.path.join(train_dir, "profile")))
+    with open(os.path.join(train_dir, "profile", traces[-1])) as f:
+        text = f.read()
+    names = {k: text.count(k) for k in ("fwd_kernel", "bwd_rows_kernel", "atb_kernel")}
+    phase("train extras (timings, profiler)", t0, steps=EXTRAS_STEPS, timings_steps=steps,
+          total_hours=hours, traces=traces, trace_mb=len(text) / 2**20,
+          trunk_kernel_mentions=json.dumps(names))
+    if steps != [0, 6, 12] or not hours > 0:
+        raise RuntimeError(f"bad timings.txt: steps {steps}, {hours} hours")
+    if not (names["fwd_kernel"] and (names["bwd_rows_kernel"] or names["atb_kernel"])):
+        raise RuntimeError(f"the profiler trace does not name both trunk kernels: {names}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2243,6 +2512,12 @@ def main():
         tt_fleet_main_path(*tt_train_main_path())
         llff_main_path()
         viewdirs_main_path()
+    torch.cuda.empty_cache()
+    jax_checkpoints_on_card()
+    with kernel_switches(False):
+        gen_video_main_path(train_dir)
+        gen_mesh_main_path(train_dir)
+        train_extras_path()
     phase("total", start)
 
     bench_rows = trunk["default", TRUNK_ROWS]

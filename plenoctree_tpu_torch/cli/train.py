@@ -3,10 +3,16 @@
 Port of plenoctree_tpu/cli/train.py for one device: the training step of
 engine.py (the fused trunk kernels with --use_pallas on a GPU), restore on
 start, `checkpoint_<step>` files every --save_every steps (the JAX
-package's msgpack format), metrics.jsonl every --print_every steps, and an
-in-train render of one test view with PSNR/SSIM every --render_every steps
-(PNG under render/). Not ported: jax.distributed / multi-host, the
-profiler hooks, the multi-host RNG fold, timings.txt, TensorBoard events.
+package's msgpack format), metrics.jsonl (and TensorBoard events where
+tensorboardX is importable) every --print_every steps, an in-train render
+of one test view with PSNR/SSIM every --render_every steps (PNG under
+render/), and timings.txt (step 0 at the start, then each render step;
+`python -m plenoctree_tpu_torch.cli.parse_timing` sums it). With
+--profile_start_step S, torch.profiler (CPU, and CUDA on a GPU) records
+steps S to S + --profile_steps and writes a Chrome trace under
+`<train_dir>/profile/`, as the JAX CLI's jax.profiler hooks trace those
+steps. Not ported: jax.distributed / multi-host and the multi-host RNG
+fold (ROADMAP.md A8).
 
 Usage:
   python -m plenoctree_tpu_torch.cli.train --config nerf_sh/config/blender \\
@@ -28,6 +34,7 @@ from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.ops.metrics import compute_psnr, compute_ssim
 from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
 from plenoctree_tpu_torch.utils import config as config_lib
+from plenoctree_tpu_torch.utils import io as io_utils
 from plenoctree_tpu_torch.utils.lr import schedule_from_config
 from plenoctree_tpu_torch.utils.metrics_writer import MetricsWriter
 from plenoctree_tpu_torch.utils.png import write_png
@@ -57,6 +64,40 @@ def _device(name):
     return dev
 
 
+class _Profile:
+    """torch.profiler over steps [start, start + steps] (the JAX CLI starts
+    its trace before step `start` and stops it after step start + steps),
+    exported as a Chrome trace into `<train_dir>/profile/`."""
+
+    def __init__(self, cfg, device):
+        self.start, self.stop_at = cfg.profile_start_step, cfg.profile_start_step + cfg.profile_steps
+        self.dir = os.path.join(cfg.train_dir, "profile")
+        self.device = device
+        self.prof = None
+
+    def before(self, step):
+        if self.start and step == self.start:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+
+    def after(self, step, last=False):
+        if self.prof is None or not (step == self.stop_at or last):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"trace_steps_{self.start}_{step}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print("* Profile written to", path)
+
+
 def main(argv=None):
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
@@ -68,6 +109,8 @@ def main(argv=None):
     os.makedirs(cfg.train_dir, exist_ok=True)
     render_dir = os.path.join(cfg.train_dir, "render")
     os.makedirs(render_dir, exist_ok=True)
+    timings = io_utils.TimingsLog(os.path.join(cfg.train_dir, "timings.txt"))
+    timings.write(0)
 
     print("* Load train data")
     dataset = get_dataset("train", cfg)
@@ -79,6 +122,7 @@ def main(argv=None):
     train_step = engine.make_train_step(model, cfg)
     lr_fn = schedule_from_config(cfg)
     gen = torch.Generator(device=device)
+    profiler = _Profile(cfg, device)
 
     with MetricsWriter(cfg.train_dir) as writer:
         gc.disable()
@@ -87,7 +131,9 @@ def main(argv=None):
         batches = engine.device_batches(dataset, device)
         for step in range(init_step, cfg.max_steps + 1):
             gen.manual_seed(SEED + step)  # resume-stable, like fold_in(rng, step)
+            profiler.before(step)
             state, stats, _ = train_step(state, next(batches), gen)
+            profiler.after(step)
             stats_trace.append(stats)
             if step % cfg.gc_every == 0:
                 gc.collect()
@@ -144,6 +190,7 @@ def main(argv=None):
                 writer.scalar("test_rays_per_sec", num_rays / eval_time, step)
                 writer.scalar("test_psnr", psnr, step)
                 writer.scalar("test_ssim", ssim, step)
+                timings.write(step)
                 print(f"Eval {step}: {eval_time:0.3f}s., PSNR {psnr:0.2f}, SSIM {ssim:0.4f}")
                 vis = np.hstack([
                     gt, pred_color, np.repeat(pred_disp, 3, -1), np.repeat(pred_acc, 3, -1),
@@ -151,7 +198,9 @@ def main(argv=None):
                 vis = (np.clip(vis, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
                 write_png(os.path.join(render_dir, "{:010}.png".format(step)), vis)
                 t_loop_start += time.time() - t_eval_start
+        profiler.after(cfg.max_steps, last=True)
         gc.enable()
+    timings.close()
 
     if cfg.max_steps % cfg.save_every != 0:
         ckpt_utils.save_checkpoint(cfg.train_dir, state, cfg.max_steps)

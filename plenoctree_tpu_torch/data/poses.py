@@ -41,8 +41,10 @@ def rot_theta(th):
     )
 
 
-def pose_spherical(theta, phi, radius):
-    """Spherical orbit pose (degrees), NeRF convention."""
+def pose_spherical(theta, phi, radius, up_axis=0):
+    """Spherical orbit pose (degrees), NeRF convention; up_axis 1-5 turns
+    the orbit's up vector to Z down / Y up / Y down / X up / X down (the
+    gen_video CLI's --up_axis minus one)."""
     c2w = trans_t(radius)
     c2w = rot_phi(phi / 180.0 * np.pi) @ c2w
     c2w = rot_theta(theta / 180.0 * np.pi) @ c2w
@@ -53,6 +55,19 @@ def pose_spherical(theta, phi, radius):
         )
         @ c2w
     )
+    if up_axis != 0:
+        vec_up = np.zeros(3, np.float32)
+        up_dim = 2 - up_axis // 2
+        other_dim = 1 if up_dim == 0 else 0
+        vec_up[up_dim] = -1 if up_axis % 2 else 1
+        vec_1 = np.zeros(3, np.float32)
+        vec_1[other_dim] = 1
+        vec_2 = np.cross(vec_up, vec_1)
+        trans = np.eye(4, dtype=np.float32)
+        trans[:3, 0] = vec_1
+        trans[:3, 1] = vec_2
+        trans[:3, 2] = vec_up
+        c2w = trans @ c2w
     return c2w
 
 

@@ -1,8 +1,9 @@
-"""Camera ray generation and the NDC conversion (host numpy).
+"""Camera ray generation, the NDC conversion and the equirectangular maps
+(host numpy).
 
-A copy of plenoctree_tpu/data/rays.py::generate_rays and convert_to_ndc
-with its own `Rays` type: the JAX package's `data` package imports flax on
-the way in (`types.py`), which the port must not need.
+A copy of plenoctree_tpu/data/rays.py with its own `Rays` type: the JAX
+package's `data` package imports flax on the way in (`types.py`), which the
+port must not need.
 """
 
 import collections
@@ -17,13 +18,14 @@ def namedtuple_map(fn, tup):
     return type(tup)(*map(fn, tup))
 
 
-def generate_rays(w, h, focal, camtoworlds):
-    """Generate per-pixel pinhole camera rays.
+def generate_rays(w, h, focal, camtoworlds, equirect=False):
+    """Generate per-pixel camera rays.
 
     Args:
       w, h: image size.
       focal: focal length in pixels.
       camtoworlds: [B, 4, 4] (or [B, 3, 4]) camera-to-world poses.
+      equirect: spherical (equirectangular) rays instead of pinhole.
 
     Returns:
       Rays of [B, h, w, 3] origins / directions / unit viewdirs.
@@ -33,10 +35,14 @@ def generate_rays(w, h, focal, camtoworlds):
         np.arange(h, dtype=np.float32),
         indexing="xy",
     )
-    camera_dirs = np.stack(
-        [(x - w * 0.5) / focal, -(y - h * 0.5) / focal, -np.ones_like(x)],
-        axis=-1,
-    )
+    if equirect:
+        uv = np.stack([x * (2.0 / w) - 1.0, y * (2.0 / h) - 1.0], axis=-1)
+        camera_dirs = equirect2xyz(uv)
+    else:
+        camera_dirs = np.stack(
+            [(x - w * 0.5) / focal, -(y - h * 0.5) / focal, -np.ones_like(x)],
+            axis=-1,
+        )
     c2w = camtoworlds[:, None, None, :3, :3]
     directions = np.matmul(c2w, camera_dirs[None, ..., None])[..., 0]
     origins = np.broadcast_to(camtoworlds[:, None, None, :3, -1], directions.shape)
@@ -64,3 +70,20 @@ def convert_to_ndc(origins, directions, focal, w, h, near=1.0):
     d2 = -2 * near / oz
 
     return np.stack([o0, o1, o2], -1), np.stack([d0, d1, d2], -1)
+
+
+def equirect2xyz(uv):
+    """Equirectangular image coords in [-1, 1] -> unit vectors."""
+    lon = uv[..., 0] * np.pi
+    lat = uv[..., 1] * (np.pi * 0.5)
+    coslat = np.cos(lat)
+    return np.stack(
+        [coslat * np.sin(lon), np.sin(lat), coslat * np.cos(lon)], axis=-1
+    )
+
+
+def xyz2equirect(xyz):
+    """Unit vectors -> equirectangular coords in [-1, 1]."""
+    lat = np.arcsin(np.clip(xyz[..., 1], -1.0, 1.0))
+    lon = np.arctan2(xyz[..., 0], xyz[..., 2])
+    return np.stack([lon / np.pi, 2.0 * lat / np.pi], axis=-1)

@@ -68,16 +68,17 @@ def _grid_points(reso, offset, invradius, z_min=None, z_max=None):
     return np.stack(np.meshgrid(xx, yy, zz, indexing="ij"), axis=-1).reshape(-1, 3)
 
 
-def make_points_fn(model, device):
-    """points [N, 3] (numpy f32) -> (raw_rgb [N, C*K], raw_sigma [N, 1]),
-    f32 tensors on `device`: the fine trunk's raw outputs (no activation),
-    as the JAX CLI's eval_points_raw; a use_viewdirs model is queried at
-    zero view directions (sigma does not depend on them)."""
+def make_points_fn(model, device, coarse=False):
+    """points [N, 3] (numpy f32, or a tensor) -> (raw_rgb [N, C*K],
+    raw_sigma [N, 1]), f32 tensors on `device`: the fine trunk's raw
+    outputs (the coarse one's with `coarse`; no activation), as the JAX
+    CLI's eval_points_raw; a use_viewdirs model is queried at zero view
+    directions (sigma does not depend on them)."""
 
     @torch.no_grad()
     def points_fn(points):
         pts = torch.as_tensor(points, dtype=torch.float32).to(device)
-        raw_rgb, raw_sigma = model.eval_points_raw(pts)
+        raw_rgb, raw_sigma = model.eval_points_raw(pts, coarse=coarse)
         return raw_rgb.float(), raw_sigma.float()
 
     return points_fn

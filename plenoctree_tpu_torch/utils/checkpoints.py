@@ -9,10 +9,14 @@ TrainState:
    'nu': <params>}, '1': {}}}
 
 (optax.adam(1.0)'s state is (ScaleByAdamState, EmptyState)). Files written
-here restore with the JAX package's `restore_checkpoint`, and files it
-writes (legacy flax msgpack) restore here, through utils/msgpack_lite.py,
-so neither side needs the other's stack. Reading the orbax checkpoint
-directories that newer flax writes by default is not ported (ROADMAP.md).
+here restore with the JAX package's `restore_checkpoint`. What the JAX
+package writes restores here in both of flax's forms, so neither side needs
+the other's stack: a legacy msgpack file, through utils/msgpack_lite.py,
+and the orbax `checkpoint_<step>/` directory that flax writes by default
+(`flax_use_orbax_checkpointing`), through utils/ocdbt.py. Original
+JaxNeRF / NeRF-SH checkpoints ({'optimizer': {'target', 'state'}}, in
+either form) import as the JAX package imports them: their params and
+step, with a fresh Adam.
 
 Adam equals optax.adam(1.0) (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
 bias-corrected) with the step's lr multiplied in afterwards, as the JAX
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from plenoctree_tpu_torch.models.params import params_from_flax, params_to_flax
-from plenoctree_tpu_torch.utils import msgpack_lite
+from plenoctree_tpu_torch.utils import msgpack_lite, ocdbt
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 _PREFIX = "checkpoint_"
@@ -101,7 +105,9 @@ def save_checkpoint(train_dir, state, step, keep=200):
 
 
 def _checkpoints(train_dir):
-    """checkpoint_<int> paths in train_dir, oldest first."""
+    """checkpoint_<int> paths in train_dir (files or orbax directories; an
+    unfinished orbax save, `checkpoint_<int>.orbax-checkpoint-tmp-<t>`, is
+    not one), oldest first."""
     if train_dir is None or not os.path.isdir(train_dir):
         return []
     found = []
@@ -113,11 +119,11 @@ def _checkpoints(train_dir):
 
 
 def read_checkpoint(path):
-    """The raw state dict of one checkpoint file (nested dicts of numpy)."""
+    """The raw state dict of one checkpoint (nested dicts of numpy): an
+    orbax directory or a msgpack file; both give the same dict for the
+    same state."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory; reading those is not ported (ROADMAP.md)"
-        )
+        return ocdbt.read_pytree(path)
     with open(path, "rb") as f:
         return msgpack_lite.unpackb(f.read())
 
@@ -141,10 +147,18 @@ def restore_checkpoint(train_dir, state):
     if not paths:
         return state
     raw = read_checkpoint(paths[-1])
-    if "optimizer" in raw:
-        raise NotImplementedError(
-            "importing original JaxNeRF/NeRF-SH checkpoints is not ported yet (ROADMAP.md)"
-        )
+    if "optimizer" in raw and "target" in raw["optimizer"]:
+        # An original JaxNeRF / NeRF-SH tree: its target (with or without a
+        # `params` level) re-rooted, Adam started afresh
+        # (plenoctree_tpu/utils/checkpoints.py::restore_checkpoint).
+        _copy_into(state.params, params_from_flax(raw["optimizer"]["target"]), "params")
+        for m in ("mu", "nu"):
+            with torch.no_grad():
+                for t in state.opt_state[m].values():
+                    t.zero_()
+        state.opt_state["count"] = 0
+        state.step = int(np.asarray(raw["optimizer"].get("state", {}).get("step", 0)))
+        return state
     _copy_into(state.params, params_from_flax(raw["variables"]["params"]), "params")
     adam = raw["opt_state"]["0"]
     for m in ("mu", "nu"):

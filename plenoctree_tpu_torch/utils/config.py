@@ -182,11 +182,14 @@ def add_bool_flag(parser, name, default, help_str):
                         help=argparse.SUPPRESS)
 
 
-def add_flags(parser):
+def add_flags(parser, extra=()):
     """Register every framework flag on an argparse parser. Every flag's
     parser default is None so that `parse_flags` can tell an explicit flag
-    from a default."""
+    from a default. `extra` names are skipped: the CLI defines its own
+    versions (as the JAX package's define_flags(extra=...))."""
     for name, (default, help_str, enum) in _FLAG_DEFS.items():
+        if name in extra:
+            continue
         if isinstance(default, bool):
             parser.add_argument(
                 f"--{name}", nargs="?", const=True, default=None,

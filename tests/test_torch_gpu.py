@@ -719,3 +719,74 @@ def test_march_cuda_matches_cpu(fast):
         assert not bool(over)
         grads.append(g.cpu())
     assert float((grads[0] - grads[1]).abs().max()) <= MARCH_GRAD_RTOL * float(grads[1].abs().max())
+
+
+@pytest.mark.gpu
+def test_gen_mesh_trunk_kernel_matches_plain_at_chunk_rows():
+    """gen_mesh's dispatch: 720,720 grid points of the published 300^3 grid
+    through make_points_fn with --use_pallas (one forward kernel launch)
+    against the plain trunk on the same points."""
+    _need_cuda()
+    from plenoctree_tpu_torch.cli import gen_mesh
+    from plenoctree_tpu_torch.models.nerf import construct_nerf
+    from plenoctree_tpu_torch.octree.extract import make_points_fn
+    from plenoctree_tpu_torch.utils.config import default_config
+
+    from plenoctree_tpu_torch.utils.config import update_flags
+
+    cfg = default_config(config="nerf_sh/config/blender")
+    update_flags(cfg)
+    cfg.use_pallas, cfg.compute_dtype = True, "bfloat16"
+    model = construct_nerf(cfg, seed=0).cuda().eval()
+    axes = gen_mesh.grid_axes([300] * 3, [-2.0] * 3, [2.0] * 3)
+    pts = gen_mesh.device_grid(axes, "cuda")[:720720]
+    before = F.fwd_launches
+    _, sigma = make_points_fn(model, "cuda")(pts)
+    torch.cuda.synchronize()
+    assert F.fwd_launches - before == 1
+    model.use_pallas = False
+    _, plain = make_points_fn(model, "cuda")(pts)
+    assert torch.isfinite(sigma).all() and sigma.shape == (720720, 1)
+    assert float((sigma - plain).abs().max()) <= TRUNK_FWD_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_marching_cuda_matches_cpu_bitwise(seed):
+    _need_cuda()
+    from plenoctree_tpu_torch.ops.marching import marching_tetrahedra
+
+    g = torch.linspace(-1, 1, 40, dtype=torch.float64)
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    noise = torch.from_numpy(np.random.default_rng(seed).normal(size=(40, 40, 40)) * 0.05)
+    vol = (0.6 - (x * x + y * y + z * z).sqrt() + noise).float()
+    vc, tc = marching_tetrahedra(vol, 0.0)
+    vg, tg = marching_tetrahedra(vol.cuda(), 0.0)
+    assert len(tc) > 1000
+    assert torch.equal(vg.cpu(), vc) and torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.gpu
+def test_jax_orbax_fixture_restores_on_cuda():
+    """The committed checkpoint that the JAX package's save_checkpoint wrote
+    (tests/torch_fixtures/jax_ckpt, an orbax directory) restored onto the
+    card, bitwise against the arrays it holds."""
+    _need_cuda()
+    import os
+
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.utils.config import default_config, update_flags
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures", "jax_ckpt")
+    want = np.load(os.path.join(root, "want.npz"))
+    cfg = default_config(config="nerf_sh/config/blender")
+    update_flags(cfg)
+    cfg.net_depth, cfg.net_width, cfg.train_dir = 2, 16, os.path.join(root, "train_state")
+    _, state = get_model_state(cfg, restore=True, device="cuda")
+    assert state.step == 3 and state.opt_state["count"] == 3
+    for group, tensors in (("params", state.params), ("mu", state.opt_state["mu"]),
+                           ("nu", state.opt_state["nu"])):
+        for k, t in tensors.items():
+            assert t.is_cuda
+            np.testing.assert_array_equal(t.detach().cpu().numpy(),
+                                          want[f"train_state/{group}/{k}"])

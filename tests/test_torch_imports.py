@@ -12,7 +12,10 @@ it, it is extracted, a fleet of one SG task runs (its subprocesses under
 the same block, through a sitecustomize.py) and its tree compresses; and
 NSVF and LLFF fixtures are written and loaded, the eval CLI serves an LLFF
 scene through the NDC tile path (--fast_eval), and a view-conditioned
-model projects onto SH."""
+model projects onto SH; and, with zstandard, tensorstore, orbax, zarr and
+numcodecs blocked as well, a full-width checkpoint directory that the JAX
+package's save_checkpoint wrote restores bitwise and the gen_video and
+gen_mesh CLIs run on it."""
 
 import json
 import os
@@ -30,7 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import sys
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "cv2", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
@@ -86,7 +90,8 @@ print("OK")
 _TRAIN_SCRIPT = r"""
 import os, sys, tempfile
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "cv2", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import torch
@@ -177,7 +182,8 @@ def test_training_slice_trains_without_jax_stack():
 _BLENDER_SCRIPT = r"""
 import sys
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "cv2", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
@@ -258,7 +264,8 @@ def test_blender_scene_loads_and_evaluates_without_pil(tmp_path):
 
 _BLOCK = """import sys
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "cv2", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
     sys.modules[name] = None  # any import of these now raises ImportError
 """
 
@@ -331,7 +338,8 @@ def test_sg_eval_fleet_and_compression_without_jax_stack(tmp_path):
 _CAPTURES_SCRIPT = r"""
 import sys
 for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
-             "imageio", "cv2", "tensorboardX"):
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
     sys.modules[name] = None  # any import of these now raises ImportError
 
 import numpy as np
@@ -399,3 +407,76 @@ def _run_blocked_args(script, *args):
     )
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     assert res.stdout.strip().endswith("OK")
+
+
+_JAX_CKPT_SCRIPT = r"""
+import sys
+for name in ("plenoctree_tpu", "jax", "jaxlib", "flax", "msgpack", "absl", "yaml", "PIL",
+             "imageio", "cv2", "tensorboardX", "zstandard", "tensorstore", "orbax", "zarr",
+             "numcodecs"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+
+import os
+import numpy as np
+from plenoctree_tpu_torch.cli import gen_mesh, gen_video
+from plenoctree_tpu_torch.models.nerf import get_model_state
+from plenoctree_tpu_torch.utils import config as config_lib
+from plenoctree_tpu_torch.utils.png import read_png
+
+train_dir = sys.argv[1]
+want = np.load(train_dir + "/want.npz")
+cfg = config_lib.default_config(config="nerf_sh/config/blender", train_dir=train_dir)
+config_lib.update_flags(cfg)
+model, state = get_model_state(cfg, restore=True)
+assert state.step == int(want["step"]) and state.opt_state["count"] == int(want["count"])
+for group, tensors in (("params", state.params), ("mu", state.opt_state["mu"]),
+                       ("nu", state.opt_state["nu"])):
+    for k, t in tensors.items():
+        assert np.array_equal(t.detach().numpy(), want[group + "/" + k]), (group, k)
+flags = ["--config", "nerf_sh/config/blender", "--train_dir", train_dir, "--device", "cpu",
+         "--chunk", "1024"]
+video_dir = gen_video.main(flags + ["--num_views", "2", "--width", "9", "--height", "9"])
+assert read_png(video_dir + "/frames/0001.png").shape == (9, 9, 3)
+out = gen_mesh.main(flags + ["--reso", "12", "--iso", "0.0", "--point_chunk", "500"])
+assert os.path.getsize(out["path"]) > 0 and out["vertices"] > 0, out
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "plenoctree_tpu", "zstandard", "tensorstore", "orbax", "zarr", "numcodecs",
+    "imageio") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_jax_checkpoint_directory_restores_without_jax_stack(tmp_path):
+    """The JAX package's save_checkpoint (an orbax OCDBT directory, zstd
+    inside) of a full-width blender SH16 TrainState with non-zero Adam
+    moments; a process with the JAX stack, orbax, tensorstore, zstandard,
+    zarr, numcodecs and imageio blocked restores it bitwise (params, mu, nu,
+    count, step), then renders an orbit through gen_video and meshes it
+    through gen_mesh on the CPU."""
+    import jax
+    from jax import random
+
+    from plenoctree_tpu.models import get_model_state as jax_get_model_state
+    from plenoctree_tpu.utils import checkpoints as jckpt
+    from plenoctree_tpu.utils import config as jconfig
+    from plenoctree_tpu_torch.models.params import params_from_flax
+
+    cfg = jconfig.default_config(config=os.path.join(REPO, "nerf_sh/config/blender"))
+    jconfig.update_flags(cfg)
+    _, state = jax_get_model_state(random.PRNGKey(1), cfg, restore=False)
+    rng = np.random.default_rng(2)
+    adam = state.opt_state[0]
+    draw = lambda t, s: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: np.abs(rng.normal(size=a.shape)).astype(np.float32) * s, t)
+    adam = adam._replace(count=np.int32(17), mu=draw(adam.mu, 1e-3), nu=draw(adam.nu, 1e-6))
+    state = state.replace(step=17, opt_state=(adam,) + tuple(state.opt_state[1:]))
+    jckpt.save_checkpoint(str(tmp_path), state, 17)
+    assert os.path.isdir(tmp_path / "checkpoint_17")
+    want = {"step": 17, "count": 17}
+    for group, tree in (("params", state.variables["params"]), ("mu", adam.mu),
+                        ("nu", adam.nu)):
+        for k, t in params_from_flax(jax.tree_util.tree_map(np.asarray, tree)).items():
+            want[f"{group}/{k}"] = t.numpy()
+    np.savez(tmp_path / "want.npz", **want)
+    _run_blocked_args(_JAX_CKPT_SCRIPT, str(tmp_path))

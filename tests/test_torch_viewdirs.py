@@ -221,17 +221,20 @@ def test_viewdirs_checkpoints_both_ways(config, tmp_path):
     jparams = jax.tree_util.tree_map(np.asarray, flax_params(jstate.variables))
     for k, t in model.state_dict().items():
         np.testing.assert_array_equal(params_from_flax(jparams)[k].numpy(), t.numpy())
-    # and back: a JAX checkpoint restores in the port
-    # (the legacy msgpack layout, as test_torch_train.py writes it: the
-    # port does not read orbax directories)
+    # and back: a JAX checkpoint restores in the port, in both of flax's
+    # forms: the legacy msgpack file (as test_torch_train.py writes it) and
+    # the orbax directory that the JAX package's save_checkpoint writes
     (tmp_path / "jax").mkdir()
     (tmp_path / "jax" / "checkpoint_7").write_bytes(
         serialization.to_bytes(jstate.replace(step=jnp.int32(7))))
-    fresh = tnerf.construct_nerf(cfg, seed=4)
-    restored = ckpt.restore_checkpoint(str(tmp_path / "jax"), ckpt.create_train_state(fresh))
-    assert restored.step == 7
-    for k, t in restored.params.items():
-        np.testing.assert_array_equal(t.detach().numpy(), model.state_dict()[k].numpy())
+    jckpt.save_checkpoint(str(tmp_path / "orbax"), jstate.replace(step=9), 9)
+    assert (tmp_path / "orbax" / "checkpoint_9").is_dir()
+    for sub, step in (("jax", 7), ("orbax", 9)):
+        fresh = tnerf.construct_nerf(cfg, seed=4)
+        restored = ckpt.restore_checkpoint(str(tmp_path / sub), ckpt.create_train_state(fresh))
+        assert restored.step == step
+        for k, t in restored.params.items():
+            np.testing.assert_array_equal(t.detach().numpy(), model.state_dict()[k].numpy())
 
 
 NAMES = sorted(tnerf._ACTIVATIONS)
