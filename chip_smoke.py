@@ -3,8 +3,9 @@ NeRF-SH training, PlenOctree conversion (extraction, tile optimization),
 the gather probes, the exact march (evaluation and optimization), the SG
 head, the NeRF eval, the conversion fleet and compression, real-capture
 layouts: NSVF (octree/config/tt_sh25.json), LLFF with NDC serving, and the
-view-conditioned head with extraction by SH projection; and the JAX
-package's checkpoints, orbit video, mesh and the train CLI's profiler.
+view-conditioned head with extraction by SH projection; the JAX
+package's checkpoints, orbit video, mesh and the train CLI's profiler;
+and the multi-device paths, with the one card used as two devices.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,8 @@ Phases, one line each with its wall time:
   4. kernel vs plain: the CUDA tile kernel against composite_tiles_reference
      on the phase-1 inputs of one 800x800 pose, with both times and the
      time of the tile inputs (ray generation + phase 1) for that pose;
-  5. main path: the eval CLI (`plenoctree_tpu_torch.cli.evaluate --fast_eval`)
+  5. main path: the eval CLI (`plenoctree_tpu_torch.cli.evaluate --fast_eval
+     --shard_devices 1`)
      in-process on the synthetic test views at 200x200; its kernel launch
      count must be > 0;
   6. serving: a 24-pose 800x800 orbit, every frame timed (regrowth included);
@@ -116,7 +118,7 @@ Phases, one line each with its wall time:
      blender scene (4 test views at 200x200): PSNR/SSIM, psnr.txt and
      ssim.txt, the PNGs read back; one 800x800 view timed (s/image);
  21. fleet main path: `python -m plenoctree_tpu_torch.cli.task_manager
-     tasks.json --gpus "0"` on two tasks in the form of syn_sh16.json and
+     tasks.json --gpus "0 0"` (two workers on the card) on two tasks in the form of syn_sh16.json and
      syn_sg25.json (published flags, --num_epochs 80 -> 2, the model flags
      as trained) on those checkpoints and the synthetic scene's views at
      32x32 (12 train, 4 test, 4 val): rc 0, two results.txt lines without
@@ -196,6 +198,30 @@ Phases, one line each with its wall time:
      the fused kernels, --profile_start_step 5 --profile_steps 3
      --render_every 6: timings.txt parses (total hours > 0), and the Chrome
      trace under train_dir/profile/ names both trunk kernels.
+ 33. data-parallel training: two gloo ranks on cuda:0
+     (plenoctree_tpu_torch.parallel.ranks.run_ranks), each half of a
+     4096-ray batch with handed-in draws, one step of the blender config at
+     full width from phase 8's checkpoint_200 (its Adam moments) through
+     the fused kernels, against a one-process step on the whole batch: the
+     ranks' parameters bitwise equal, within TRUNK_GRAD_RTOL of the
+     one-process step relative to the update, kernels #1/#2 launched 3
+     times by each rank; then the train CLI under torch.distributed.run,
+     two gloo ranks on cuda:0 for DP_STEPS steps (each rank's ms/step,
+     all-reduce ms/step and launches; rank 0 alone writes; checkpoint_20
+     restores), then one rank with the default NCCL backend for 5 steps;
+ 34. sharded serving (run right after phase 6, on its index): the depth-7
+     serving tree through TileRenderer(mesh=[cuda:0, cuda:0]) at 800x800,
+     N_SHARDED_POSES orbit poses bitwise the one-device frames, kernel #3
+     launched twice a frame, median ms/frame of both (u8 output); the eval
+     CLI's --shard_devices 2 refused on a one-GPU host (phase 5 runs the
+     eval CLI with --shard_devices 1);
+ 35. sharded inference over [cuda:0, cuda:0]: engine.render_image at
+     200x200 (chunk 8000: two 4000-ray slices) within the one-device
+     render's own spread (a rerun, and chunk 4000) and bitwise the
+     one-device render at the slice size; the extract CLI with
+     --mesh_shape 2 at phase 9's flags, bitwise phase 9's tree; the
+     gen_mesh CLI at 300^3 with --mesh_shape 2: GEN_MESH_LAUNCHES launches
+     of kernel #1, the volume bitwise phase 31's.
 
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
@@ -344,6 +370,11 @@ MARCH_STEP_RANGES = {"march": "pn_march", "shade": "pn_shade", "update": "pn_upd
 SG_CONFIG = "nerf_sh/config/misc/sg"
 TRAINED_MODEL_FLAGS = ["--use_pallas", "--compute_dtype", "bfloat16"]
 FLEET_EPOCHS = 2  # of the published 80, as phase 13 is cut
+# Two fleet workers on the one card: each stage is a process start, an
+# index or accel build and little device work, so the two tasks overlap
+# (134-159 s one after the other, 93 s side by side; NVIDIA H100 80GB
+# HBM3, 700 W).
+FLEET_GPUS = "0 0"
 # The fleet's views, 12 train / 4 test / 4 val of the synthetic scene, cut
 # from the published 800x800. The extraction's visibility mask keeps more
 # leaves the more rays it casts, and every stage does more work: with
@@ -391,6 +422,13 @@ EXTRAS_STEPS = 12
 # 10,000 directions each, the JAX chunking rule), where the published 8192
 # makes one leaf per dispatch (34k dispatches: 127 s at depth 5).
 PROJ_CHUNK = 81920
+# Phases 33-35, multi-device on the one card: the train CLI under
+# torch.distributed.run (2 gloo ranks on cuda:0, then 1 NCCL rank), and
+# serving and inference over [cuda:0, cuda:0].
+DP_STEPS = 20
+NCCL_STEPS = 5
+DP_CLI_TIMEOUT = 300
+N_SHARDED_POSES = 4
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -1555,7 +1593,8 @@ def nerf_eval_main_path(sh_dir, sg_dir):
 
 def fleet_main_path(sh_dir, sg_dir):
     """Phase 21: `python -m plenoctree_tpu_torch.cli.task_manager tasks.json
-    --gpus "0"` as a subprocess, on a task file with two tasks in the form of
+    --gpus "0 0"` (two workers on the one card, the tasks side by side) as a
+    subprocess, on a task file with two tasks in the form of
     octree/config/syn_sh16.json and syn_sg25.json (bench_fleet.fleet_tasks:
     their configs and published extr/opt/eval flags, --num_epochs 80 ->
     FLEET_EPOCHS, plus the model flags the checkpoints were trained with)
@@ -1572,8 +1611,9 @@ def fleet_main_path(sh_dir, sg_dir):
     write_blender_dataset(scene, 12, 4, FLEET_RES)
     fleet_dir = os.path.join(ROOT, "build", "smoke", "fleet")
     tasks = bench_fleet.fleet_tasks(sh_dir, sg_dir, scene, FLEET_EPOCHS)
-    rc, stages, lines, _ = bench_fleet.run_fleet(tasks, fleet_dir)
-    phase("fleet main path", t0, rc=rc, tasks=len(tasks), epochs=FLEET_EPOCHS, views=FLEET_RES,
+    rc, stages, lines, _ = bench_fleet.run_fleet(tasks, fleet_dir, gpus=FLEET_GPUS)
+    phase("fleet main path", t0, rc=rc, tasks=len(tasks), workers=FLEET_GPUS, epochs=FLEET_EPOCHS,
+          views=FLEET_RES,
           stage_wall_s=json.dumps(stages),
           results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]))
     if rc != 0 or len(lines) != 2 or any("error" in r for r in lines):
@@ -2297,7 +2337,7 @@ def gen_mesh_main_path(train_dir):
     if not march_equal or len(tc) == 0:
         raise RuntimeError(f"marching on the card differs from the CPU ({len(tc)} triangles)")
     return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound": bound}
+            "library_ms": lib_ms, "bound": bound, "volume": res["volume"]}
 
 
 def train_extras_path():
@@ -2331,6 +2371,293 @@ def train_extras_path():
         raise RuntimeError(f"bad timings.txt: steps {steps}, {hours} hours")
     if not (names["fwd_kernel"] and (names["bwd_rows_kernel"] or names["atb_kernel"])):
         raise RuntimeError(f"the profiler trace does not name both trunk kernels: {names}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(nproc, train_dir, extra, steps, log_name):
+    """The train CLI under torch.distributed.run with nproc ranks, the smoke's
+    blender config at batch 4096 on 32x32 synthetic views; returns (rc, its
+    output, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           "-m", "plenoctree_tpu_torch.cli.train", "--config", "nerf_sh/config/blender",
+           "--dataset", "synthetic", "--synthetic_resolution", "32", "--train_dir", train_dir,
+           *TRAINED_MODEL_FLAGS, "--batch_size", str(BENCH_BATCH), "--image_batching",
+           "--max_steps", str(steps),
+           "--print_every", "5", "--save_every", str(steps), "--render_every", str(steps),
+           *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=DP_CLI_TIMEOUT)
+    out = res.stdout + res.stderr
+    with open(os.path.join(ROOT, "build", "smoke", log_name), "w") as f:
+        f.write(out)
+    return res.returncode, out, time.time() - t0
+
+
+def _rank_lines(out):
+    """{rank: (steps, ms/step, all-reduce ms/step, fwd launches, bwd launches)}
+    from the train CLI's closing line of each rank."""
+    import re
+
+    got = {}
+    pat = re.compile(r"\* rank (\d+)/\d+: (\d+) steps, ([\d.]+) ms/step, all-reduce ([\d.]+) "
+                     r"ms/step, trunk launches fwd (\d+) bwd (\d+)")
+    for line in out.splitlines():
+        m = pat.search(line)
+        if m:
+            r, n, ms, ar, f, b = m.groups()
+            got[int(r)] = (int(n), float(ms), float(ar), int(f), int(b))
+    return got
+
+
+def dp_train_path(train_dir):
+    """Phase 33: data-parallel training. Two gloo ranks on cuda:0, each half
+    of a 4096-ray batch, one step of the blender config at full width from
+    phase 8's checkpoint_200 (its Adam moments) against a one-process step
+    on the whole batch; then the train CLI under torch.distributed.run, two
+    gloo ranks on cuda:0 for DP_STEPS steps and one NCCL rank for 5."""
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.data.rays import Rays
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.parallel.ranks import run_ranks, train_steps
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    t0 = time.time()
+    argv = ["--config", "nerf_sh/config/blender", "--dataset", "synthetic", "--train_dir",
+            train_dir, *TRAINED_MODEL_FLAGS]
+    cfg = config_lib.parse_flags(train_cli.build_parser(), argv)
+    flags = {k: v for k, v in vars(cfg).items() if hasattr(config_lib.default_config(), k)}
+    model, state = get_model_state(cfg, restore=True, device="cpu")
+    params = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    opt = {"count": state.opt_state["count"],
+           **{m: {k: v.numpy() for k, v in state.opt_state[m].items()} for m in ("mu", "nu")}}
+    rng = np.random.default_rng(SEED + 33)
+    n, f32 = BENCH_BATCH, np.float32
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.normal(size=(n, 3)) * 0.3 - o / 4.0
+    batch = {"pixels": rng.uniform(size=(n, 3)).astype(f32),
+             "rays": Rays(*[a.astype(f32) for a in (o, d, d / np.linalg.norm(d, axis=-1,
+                                                                              keepdims=True))])}
+    draws = {"t_rand": rng.uniform(size=(n, cfg.num_coarse_samples)).astype(f32),
+             "u": rng.uniform(size=(n, cfg.num_fine_samples + 1)).astype(f32),
+             "sp_points": rng.uniform(-cfg.sparsity_radius, cfg.sparsity_radius,
+                                      (cfg.sparsity_npoints, 3)).astype(f32)}
+    kw = dict(cfg=flags, params=params, batches=[batch], draws=[draws], opt_state=opt,
+              device="cuda:0", launches=True)
+    one = train_steps(0, 1, **kw)
+    t1 = time.time()
+    two = run_ranks("plenoctree_tpu_torch.parallel.ranks:train_steps", 2, kw, timeout=300)
+    ranks_s = time.time() - t1
+    same = all(np.array_equal(two[0]["params"][-1][k], two[1]["params"][-1][k]) for k in params)
+    worst, worst_grad = 0.0, 0.0
+    for k, p0 in one["params"][0].items():
+        update = float(np.abs(one["params"][-1][k] - p0).max())
+        err = float(np.abs(two[0]["params"][-1][k] - one["params"][-1][k]).max())
+        worst = max(worst, err / max(update, 1e-30))
+        g1, g2 = one["grads"][0][k], two[0]["grads"][0][k]
+        worst_grad = max(worst_grad, float(np.abs(g2 - g1).max() / max(np.abs(g1).max(), 1e-30)))
+    launches = [(r["fwd_launches"], r["bwd_launches"]) for r in two]
+    phase("data-parallel step vs one process", t0, ranks=2, backend="gloo", device="cuda:0",
+          rows_per_rank=n // 2, ranks_bitwise_equal=same, update_rel_err=worst,
+          grad_rel_err=worst_grad, tol=TRUNK_GRAD_RTOL, launches_per_rank=launches,
+          all_reduce_ms=[r["all_reduce_ms"] for r in two], ranks_s=round(ranks_s, 2),
+          loss=(one["stats"][0]["loss"], two[0]["stats"][0]["loss"]))
+    if not same:
+        raise RuntimeError("the two ranks' parameters differ after the step")
+    if not worst <= TRUNK_GRAD_RTOL:
+        raise RuntimeError(f"2-rank step off the one-process step: {worst} of the update")
+    if launches != [(3, 3), (3, 3)]:
+        raise RuntimeError(f"each rank must launch both trunk kernels 3 times: {launches}")
+
+    t0 = time.time()
+    dp_dir = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(ROOT, "build", "smoke"))
+    rc, out, secs = _torchrun(2, dp_dir, ["--device", "cuda:0", "--dist_backend", "gloo"],
+                              DP_STEPS, "dp_train.log")
+    lines = _rank_lines(out)
+    if rc != 0:
+        raise RuntimeError(f"torchrun (2 gloo ranks) failed with {rc}:\n{out[-3000:]}")
+    names = sorted(os.listdir(dp_dir))
+    with open(os.path.join(dp_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    loss_steps = [r["step"] for r in rows if r["tag"] == "train_loss"]
+    with open(os.path.join(dp_dir, "timings.txt")) as f:
+        timing_steps = [int(ln.split()[0]) for ln in f.read().splitlines()]
+    fresh, _ = get_model_state(cfg, restore=False, device="cuda")
+    restored = ckpt_utils.restore_checkpoint(dp_dir, ckpt_utils.create_train_state(fresh))
+    phase("data-parallel train CLI (torchrun, 2 gloo ranks on cuda:0)", t0, steps=DP_STEPS,
+          seconds=round(secs, 2), ranks=json.dumps({r: dict(zip(
+              ("steps", "ms_per_step", "all_reduce_ms_per_step", "fwd_launches", "bwd_launches"),
+              v)) for r, v in lines.items()}),
+          files=names, loss_steps=loss_steps, timings_steps=timing_steps,
+          restored_step=restored.step)
+    want = (DP_STEPS, 3 * DP_STEPS, 3 * DP_STEPS)
+    if sorted(lines) != [0, 1] or any((v[0], v[3], v[4]) != want for v in lines.values()):
+        raise RuntimeError(f"bad rank lines {lines}, want steps/fwd/bwd {want}")
+    if loss_steps != list(range(5, DP_STEPS + 1, 5)) or timing_steps != [0, DP_STEPS]:
+        raise RuntimeError(f"rank 0 alone must write: metrics {loss_steps}, timings {timing_steps}")
+    if restored.step != DP_STEPS or f"checkpoint_{DP_STEPS}" not in names:
+        raise RuntimeError(f"checkpoint_{DP_STEPS} did not restore: {names}")
+
+    t0 = time.time()
+    nccl_dir = tempfile.mkdtemp(prefix="nccl_", dir=os.path.join(ROOT, "build", "smoke"))
+    rc, out, secs = _torchrun(1, nccl_dir, ["--device", "cuda"], NCCL_STEPS, "nccl_train.log")
+    lines = _rank_lines(out)
+    backend = "(nccl)" in out
+    phase("data-parallel train CLI (torchrun, 1 NCCL rank)", t0, rc=rc, steps=NCCL_STEPS,
+          seconds=round(secs, 2), nccl_group=backend, rank0=lines.get(0))
+    if rc != 0 or not backend or lines.get(0, (0,))[0] != NCCL_STEPS:
+        raise RuntimeError(f"torchrun with one NCCL rank failed ({rc}):\n{out[-3000:]}")
+
+
+def sharded_serving(tree, index, smi, tree_path):
+    """Phase 34: the serving tree over [cuda:0, cuda:0] (TileRenderer(mesh)):
+    N_SHARDED_POSES orbit poses at 800x800 bitwise the one-device frames,
+    kernel #3 launched twice a frame; ms/frame of both (u8 output); then
+    the eval CLI's --shard_devices 2 refused on a one-GPU host (phase 5
+    runs it with --shard_devices 1)."""
+    from plenoctree_tpu_torch.cli import evaluate as eval_cli
+    from plenoctree_tpu_torch.data.poses import orbit_pose
+    from plenoctree_tpu_torch.kernels import tile_composite
+    from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+    from plenoctree_tpu_torch.parallel import make_mesh
+
+    t0 = time.time()
+    focal = 1.1 * RES
+    kw = dict(step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, index=index)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    poses = [orbit_pose(2.0 * np.pi * k / N_SHARDED_POSES) for k in range(N_SHARDED_POSES)]
+    single = TileRenderer(tree, device="cuda", **kw)
+    sharded = TileRenderer(tree, mesh=mesh, **kw)
+    frames = [single.render_persp(c2w, RES, RES, focal) for c2w in poses]
+    sharded.w1cap, sharded.ccap = single.w1cap, single.ccap
+    tile_composite.launches = 0
+    equal = []
+    for c2w, want in zip(poses, frames):
+        equal.append(bool(np.array_equal(sharded.render_persp(c2w, RES, RES, focal), want)))
+    torch.cuda.synchronize()
+    launches = tile_composite.launches
+    ms = {}
+    for name, r in (("single", single), ("sharded", sharded)):
+        srv = TileRenderer(tree, output="u8", device="cuda", mesh=r.mesh, **kw)
+        srv.w1cap, srv.ccap = single.w1cap, single.ccap
+        srv.render_persp(poses[0], RES, RES, focal)  # warm-up
+        times = []
+        for c2w in poses:
+            t1 = time.perf_counter()
+            srv.render_persp(c2w, RES, RES, focal)
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms[name] = float(np.median(times))
+    refused = None
+    if torch.cuda.device_count() == 1:
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                eval_cli.main(["--input", tree_path, "--config", "nerf_sh/config/blender",
+                               "--dataset", "synthetic", "--synthetic_resolution",
+                               str(EVAL_RES), "--fast_eval", "--shard_devices", "2"])
+        except ValueError as e:
+            refused = str(e)
+    phase("sharded serving", t0, devices="cuda:0,cuda:0", poses=N_SHARDED_POSES, res=RES,
+          bitwise_equal=equal, launches=launches, median_ms_sharded=ms["sharded"],
+          median_ms_single=ms["single"], shard2_refused=repr(refused), gpu=repr(smi))
+    if not all(equal):
+        raise RuntimeError(f"sharded frames differ from the one-device frames: {equal}")
+    if launches != 2 * N_SHARDED_POSES:
+        raise RuntimeError(f"kernel #3 launched {launches} times over {N_SHARDED_POSES} frames")
+    if torch.cuda.device_count() == 1 and refused is None:
+        raise RuntimeError("--shard_devices 2 was not refused on a one-GPU host")
+
+
+def sharded_inference(train_dir, one_device_volume):
+    """Phase 35: inference over [cuda:0, cuda:0]: render_image at 200x200
+    against one device, the extract CLI (depth 6, phase 9's flags) against
+    phase 9's tree, gen_mesh at 300^3 with --mesh_shape 2 against phase
+    31's volume, kernel #1's launches counted."""
+    import io
+
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.cli import extract as extract_cli
+    from plenoctree_tpu_torch.cli import gen_mesh
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.data.rays import generate_rays
+    from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.models.nerf import get_model_state
+    from plenoctree_tpu_torch.octree import N3Tree
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    devices = ["cuda:0", "cuda:0"]
+    t0 = time.time()
+    argv = ["--config", "nerf_sh/config/blender", "--dataset", "synthetic", "--train_dir",
+            train_dir, "--device", "cuda", *TRAINED_MODEL_FLAGS]
+    cfg = config_lib.parse_flags(train_cli.build_parser(), argv)
+    model, _ = get_model_state(cfg, restore=True, device="cuda")
+    _, c2ws, focal = render_synthetic_scene("test", 1, EVAL_RES, True, 2.0, 6.0)
+    rays = generate_rays(EVAL_RES, EVAL_RES, focal, c2ws[:1])
+    rays = type(rays)(*[np.asarray(r[0]) for r in rays])
+    chunk = EVAL_RES * EVAL_RES // 5  # 8000: two 4000-ray slices, no tail
+    t1 = time.perf_counter()
+    one = engine.render_image(model, rays, chunk=chunk, device="cuda")
+    one_s = time.perf_counter() - t1
+    rerun = engine.render_image(model, rays, chunk=chunk, device="cuda")
+    half = engine.render_image(model, rays, chunk=chunk // 2, device="cuda")
+    t1 = time.perf_counter()
+    many = engine.render_image(model, rays, chunk=chunk, device="cuda", devices=devices)
+    many_s = time.perf_counter() - t1
+    spread = max(float(np.abs(a - b).max()) for a, b in zip(one + one, rerun + half))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(many, one))
+    same_rows = all(np.array_equal(a, b) for a, b in zip(many, half))
+    phase("sharded render_image", t0, devices=",".join(devices), res=EVAL_RES, chunk=chunk,
+          max_abs_err_vs_one=err, rerun_and_chunk_spread=spread,
+          bitwise_vs_one_at_half_chunk=same_rows, one_s=round(one_s, 3),
+          sharded_s=round(many_s, 3))
+    if not (err <= spread and same_rows and all(np.isfinite(x).all() for x in many)):
+        raise RuntimeError(f"sharded render_image: {err} beyond the spread {spread}, "
+                           f"bitwise at the slice size {same_rows}")
+
+    t0 = time.time()
+    out = os.path.join(ROOT, "build", "smoke", "extract_sharded", "tree.npz")
+    fused_mlp.fwd_launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        tree = extract_cli.main(argv + ["--output", out, "--noeval", "--mesh_shape", "2",
+                                        *EXTRACT_FLAGS], devices=devices)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fwd_launches
+    tree = N3Tree.load(out)
+    ref = N3Tree.load(os.path.join(ROOT, "build", "smoke", "extract", "tree.npz"))
+    same_topology = tree.n_leaves == ref.n_leaves and np.array_equal(tree.child, ref.child)
+    data_err = float(np.abs(tree.data - ref.data).max()) if same_topology else float("inf")
+    phase("sharded extract", t0, devices=",".join(devices), depth=EXTRACT_DEPTH,
+          fwd_launches=launches, leaves=tree.n_leaves, same_topology=same_topology,
+          max_abs_err_vs_one_device=data_err)
+    if not (same_topology and data_err == 0.0 and launches > 0):
+        raise RuntimeError(f"sharded extraction differs from phase 9's tree ({data_err})")
+
+    t0 = time.time()
+    fused_mlp.fwd_launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = gen_mesh.main(argv + ["--reso", str(GEN_MESH_RESO), "--c1", "-2", "--c2", "2",
+                                    "--iso", "6.0", "--point_chunk", str(GEN_MESH_CHUNK),
+                                    "--mesh_shape", "2"], devices=devices)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fwd_launches
+    vol_equal = bool(torch.equal(res["volume"], one_device_volume.to(res["volume"].device)))
+    phase("sharded gen_mesh", t0, devices=",".join(devices), reso=GEN_MESH_RESO,
+          fwd_launches=launches, want_launches=GEN_MESH_LAUNCHES, volume_bitwise=vol_equal,
+          vertices=res["vertices"], seconds=json.dumps({k: round(v, 3) for k, v in
+                                                         res["seconds"].items()}))
+    if launches != GEN_MESH_LAUNCHES or not vol_equal:
+        raise RuntimeError(f"sharded gen_mesh: {launches} launches, volume equal {vol_equal}")
 
 
 def main():
@@ -2378,15 +2705,22 @@ def main():
         depth=tree.max_depth, leaves=tree.n_leaves, path=tree_path,
     )
 
-    # The CLIs' synthetic views at 200x200, rendered once on the host: the
+    # The CLIs' synthetic views at 200x200, rendered once on the host (the
+    # three splits on threads: numpy's large ops release the GIL): the
     # renders are memoized in process, and phases 5, 13 (three CLI runs),
     # 16 and 18 reuse them.
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.time()
-    split_s = {}
-    for split, n_views in (("test", 4), ("train", 12), ("val", 4)):
+
+    def render_split(split, n_views):
         t1 = time.time()
         render_synthetic_scene(split, n_views, EVAL_RES, True, 2.0, 6.0)
-        split_s[split] = round(time.time() - t1, 2)
+        return split, round(time.time() - t1, 2)
+
+    with ThreadPoolExecutor(3) as pool:
+        split_s = dict(pool.map(lambda a: render_split(*a),
+                                (("test", 4), ("train", 12), ("val", 4))))
     phase("synthetic views", t0, res=EVAL_RES, seconds_by_split=json.dumps(split_s))
     blender_round_trip()
 
@@ -2435,7 +2769,7 @@ def main():
     psnr, ssim, lpips = eval_cli.main([
         "--input", tree_path, "--config", "nerf_sh/config/blender",
         "--dataset", "synthetic", "--synthetic_resolution", str(EVAL_RES),
-        "--fast_eval", "--device", "cuda",
+        "--fast_eval", "--shard_devices", "1", "--device", "cuda",
     ])
     torch.cuda.synchronize()
     main_launches = tile_composite.launches
@@ -2473,6 +2807,7 @@ def main():
     )
     del server, soa, p2, out_k, out_p
     ndc_serving(tree, renderer.index, smi)
+    sharded_serving(tree, renderer.index, smi, tree_path)
     del renderer, idx
     torch.cuda.empty_cache()
 
@@ -2516,8 +2851,10 @@ def main():
     jax_checkpoints_on_card()
     with kernel_switches(False):
         gen_video_main_path(train_dir)
-        gen_mesh_main_path(train_dir)
+        mesh_res = gen_mesh_main_path(train_dir)
         train_extras_path()
+        dp_train_path(train_dir)
+        sharded_inference(train_dir, mesh_res.pop("volume"))
     phase("total", start)
 
     bench_rows = trunk["default", TRUNK_ROWS]

@@ -80,12 +80,14 @@ def fleet_tasks(sh_dir, sg_dir, data_dir, epochs):
     return tasks
 
 
-def run_fleet(tasks, fleet_dir):
-    """`python -m plenoctree_tpu_torch.cli.task_manager tasks.json --gpus 0`
-    as a subprocess (its output to fleet.log) on `tasks` (a list of tasks,
-    or a whole task-file spec with its scenes and roots) written to
+def run_fleet(tasks, fleet_dir, gpus="0"):
+    """`python -m plenoctree_tpu_torch.cli.task_manager tasks.json --gpus
+    <gpus>` as a subprocess (its output to fleet.log) on `tasks` (a list of
+    tasks, or a whole task-file spec with its scenes and roots) written to
     fleet_dir/tasks.json; returns (rc, {task's train_dir name: {stage: s}}
-    from the worker's stage lines, the results.txt lines, wall s)."""
+    from the workers' stage lines, the results.txt lines, wall s). With
+    several workers ("0 0": two on one card) a stage's time runs to the
+    next line of the same task."""
     os.makedirs(fleet_dir, exist_ok=True)
     results_path = os.path.join(fleet_dir, "results.txt")
     if os.path.exists(results_path):
@@ -95,30 +97,37 @@ def run_fleet(tasks, fleet_dir):
         json.dump(tasks if isinstance(tasks, dict) else {"tasks": tasks}, f, indent=1)
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.time()
-    marks = []  # (seconds since start, stage line)
+    marks = {}  # task's train_dir name -> [(seconds since start, stage or None)]
     with open(os.path.join(fleet_dir, "fleet.log"), "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "plenoctree_tpu_torch.cli.task_manager", task_file,
-             "--gpus", "0"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+             "--gpus", gpus], cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, bufsize=1,
         )
         for line in proc.stdout:
             log.write(line)
-            if line.startswith("[worker]"):
-                marks.append((time.time() - t0, line))
+            if line.startswith("[worker] done"):
+                scene, stage = line.split("'scene': '")[1].split("'")[0], None
+            elif line.startswith("[worker]"):
+                scene = line.split("--train_dir ")[1].split()[0]
+                stage = line.split("plenoctree_tpu_torch.cli.")[1].split()[0]
+            else:
+                continue
+            marks.setdefault(os.path.basename(scene), []).append((time.time() - t0, stage))
         rc = proc.wait()
     wall = time.time() - t0
     stages = {}
-    for (t_a, a), (t_b, _) in zip(marks, marks[1:]):
-        if a.startswith("[worker] done"):
-            continue
-        stage = a.split("plenoctree_tpu_torch.cli.")[1].split()[0]
-        scene = a.split("--train_dir ")[1].split()[0]
-        stages.setdefault(os.path.basename(scene), {})[stage] = round(t_b - t_a, 2)
+    for scene, seq in marks.items():
+        for (t_a, stage), (t_b, _) in zip(seq, seq[1:]):
+            if stage is not None:
+                stages.setdefault(scene, {})[stage] = round(t_b - t_a, 2)
     lines = []
     if os.path.exists(results_path):
         with open(results_path) as f:
             lines = [json.loads(x) for x in f.read().splitlines() if x.strip()]
+    if not isinstance(tasks, dict):  # the tasks' order, whichever worker finished first
+        order = {t["train_dir"]: i for i, t in enumerate(tasks)}
+        lines.sort(key=lambda r: order.get(r.get("scene"), len(order)))
     return rc, stages, lines, wall
 
 

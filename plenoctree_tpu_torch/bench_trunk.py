@@ -1,6 +1,7 @@
 """The noise floor of the fused trunk's gradient check, per variant.
 
     python -m plenoctree_tpu_torch.bench_trunk [--rows 10000] [--seeds 6] [--device cpu]
+    python -m plenoctree_tpu_torch.bench_trunk --decode_check [--rows 4096]
 
 For each variant of the trunk (the default, the in-kernel posenc, the SH
 decode, both) at the flagship width (8x256, skip 4, d_in 63, head 1 + 48,
@@ -16,6 +17,15 @@ count measures rounding noise, not the kernel. (chip_smoke.py times the
 kernels.)
 
 Prints one JSON line per variant.
+
+--decode_check asks where the SH decode's backward rounds: for each seed,
+on the SH16 head with a basis of N(0, 1) values (tests/test_torch_gpu.py's
+draws) and with a degree-3 SH basis of random unit directions, the kernel
+with the in-kernel decode against the default kernel fed the decoded
+cotangent g_rgb[:, c] * basis[:, k] formed in f32 beforehand (the JAX
+kernel's rounding points: that f32 product, then bf16 at each matmul, the
+bias sum in f32), bitwise; and each one's distance from the f64 evaluation
+beside the plain version's. One JSON line per basis.
 """
 
 import argparse
@@ -142,17 +152,65 @@ def run(rows, seeds, device):
     return out
 
 
+def decoded_cotangent(g_rgb, basis):
+    """g_rgb[:, c] * basis[:, k] in f32, column c * K + k: the cotangent of
+    the raw head columns that the SH decode's backward forms."""
+    return (g_rgb[:, :, None] * basis[:, None, :]).reshape(g_rgb.shape[0], -1)
+
+
+def decode_check(rows, seeds, device):
+    """The --decode_check lines (see the module docstring)."""
+    params = init_trunk_params(np.random.default_rng(rows), 63, 8, 256, 4, 1, 48, bias_std=0.05)
+    flat_sh, meta_sh = trunk_weights(params, 4, device, None, 16)
+    flat, meta = trunk_weights(params, 4, device, None, 0)
+    out = []
+    for basis_kind in ("normal", "sh3"):
+        res = {"basis": basis_kind, "rows": rows, "device": str(device), "bitwise": [],
+               "ratio_decode": [], "ratio_default": [], "plain_vs_f64": []}
+        for seed in range(seeds):
+            rng = np.random.default_rng(rows + 1 + seed)
+            t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+            x = t(rng.normal(size=(rows, 63)))
+            if basis_kind == "normal":
+                basis = t(rng.normal(size=(rows, 16)))
+            else:
+                dirs = t(rng.normal(size=(rows, 3)))
+                basis = sh_basis(3, dirs / dirs.norm(dim=-1, keepdim=True))
+            gs, gr = t(rng.normal(size=(rows, 1))), t(rng.normal(size=(rows, 3)))
+            g48 = decoded_cotangent(gr, basis)
+            exact = bwd_f64(flat_sh, x, gs, gr, meta_sh, basis)
+            plain = fused_mlp.fused_trunk_bwd_reference(flat_sh, x, gs, gr, meta_sh, basis)
+            k_sh = fused_mlp.fused_trunk_bwd(flat_sh, x, gs, gr, meta_sh, basis)
+            k_def = fused_mlp.fused_trunk_bwd(flat, x, gs, g48, meta)
+            d_plain = max(rel_errs(plain, exact))
+            res["bitwise"].append(all(torch.equal(a, b) for a, b in zip(k_sh, k_def)))
+            res["plain_vs_f64"].append(d_plain)
+            res["ratio_decode"].append(max(rel_errs(k_sh, exact)) / d_plain)
+            res["ratio_default"].append(max(rel_errs(k_def, exact)) / d_plain)
+        res["card"] = torch.cuda.get_device_name(0)
+        print(json.dumps(res), flush=True)
+        out.append(res)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=10000)
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--seeds", type=int, default=6)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--decode_check", action="store_true",
+                    help="the SH decode's backward against the default kernel (card only)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device (use --device cpu for the plain "
                            "version's noise alone)")
-    run(args.rows, args.seeds, device)
+    if args.decode_check:
+        if device.type != "cuda":
+            raise RuntimeError("--decode_check compares kernels: it needs --device cuda")
+        decode_check(args.rows or 4096, args.seeds, device)
+    else:
+        run(args.rows or 10000, args.seeds, device)
     return 0
 
 

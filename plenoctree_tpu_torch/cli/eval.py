@@ -1,9 +1,10 @@
 """NeRF-SH evaluation CLI: chunked full-image test renders, PSNR/SSIM.
 
-Port of plenoctree_tpu/cli/eval.py for one device: restore the newest
-checkpoint of --train_dir, render every --approx_eval_skip-th test view
-through engine.render_image (the plain forward, as the JAX package's
-inference model), print PSNR/SSIM per image and on average, write
+Port of plenoctree_tpu/cli/eval.py: restore the newest checkpoint of
+--train_dir, render every --approx_eval_skip-th test view through
+engine.render_image (the plain forward, as the JAX package's inference
+model; with --device cuda each chunk split over every visible GPU, shaped
+by --mesh_shape), print PSNR/SSIM per image and on average, write
 `psnr.txt` and `ssim.txt` into the train dir and the `eval_psnr` /
 `eval_ssim` scalars into `<train_dir>/eval/metrics.jsonl`, and with
 --save_output (the default) `test_preds/{idx:03d}.png` and
@@ -25,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from plenoctree_tpu_torch import engine
+from plenoctree_tpu_torch import engine, parallel
 from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.ops.metrics import compute_psnr, compute_ssim
@@ -51,15 +52,18 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
     """Returns (average PSNR, average SSIM) of the last checkpoint evaluated
-    (NaN with --render_path, which computes no metrics)."""
+    (NaN with --render_path, which computes no metrics). `devices`
+    overrides the device list the renders are split over."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
+    devices = parallel.cli_devices(cfg, device, devices)
+    device = devices[0]
 
     dataset = get_dataset("test", cfg)
     out_dir = os.path.join(cfg.train_dir, "path_renders" if cfg.render_path else "test_preds")
@@ -83,7 +87,7 @@ def main(argv=None):
                 print(f"Evaluating {idx + 1}/{dataset.size}")
                 pred_color, pred_disp, _ = engine.render_image(
                     model, case["rays"], chunk=cfg.chunk, device=device,
-                    normalize_disp=cfg.dataset == "llff",
+                    normalize_disp=cfg.dataset == "llff", devices=devices,
                 )
                 if not cfg.render_path:
                     gt = case["pixels"]

@@ -8,7 +8,9 @@ NeRF samples, relu the sigma channel and save `--output`; then, with
 `--eval` (the default), evaluate it on the test views through the exact
 march, as the JAX CLI does (the tile renderer with `--fast_eval`). The
 NeRF is queried on `--device` (the fused trunk kernel with --use_pallas on
-a GPU).
+a GPU), and with `--device cuda` over every visible GPU, shaped by
+--mesh_shape as in the JAX CLI: each dispatch of --point_chunk points per
+device split over them (octree/extract.py).
 
 SG models (sg_dim > 0) give SG{sg_dim} trees whose extra_data [N, 4]
 holds (softplus lambda, cartesian mu). use_viewdirs models
@@ -27,6 +29,7 @@ import os
 
 import torch
 
+from plenoctree_tpu_torch import parallel
 from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.octree import N3Tree
@@ -52,9 +55,10 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
     """Returns the extracted tree (and, with --eval, writes
-    `<output>.results.json`)."""
+    `<output>.results.json`). `devices` overrides the device list the NeRF
+    queries are split over (a device may repeat)."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
@@ -76,6 +80,10 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
 
+    devices = parallel.cli_devices(cfg, device, devices)
+    device = devices[0]
+    if len(devices) == 1:
+        devices = None
     print("* Loading NeRF")
     model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
     print("  from step", state.step)
@@ -114,7 +122,7 @@ def main(argv=None):
 
     points_fn = extract_lib.make_points_fn(model, device)
     if cfg.autoscale:
-        center, radius = extract_lib.auto_scale(cfg, center, radius, points_fn, device)
+        center, radius = extract_lib.auto_scale(cfg, center, radius, points_fn, device, devices)
         print("Autoscale result center", center, "radius", radius)
 
     radius = [r * cfg.bbox_scale for r in radius]
@@ -140,9 +148,10 @@ def main(argv=None):
         data_format=data_format,
         extra_data=extra_data,
     )
-    extract_lib.step1_build(cfg, tree, points_fn, dataset, device=device)
+    extract_lib.step1_build(cfg, tree, points_fn, dataset, device=device, devices=devices)
     cross_fn = extract_lib.make_cross_fn(model, device) if cfg.use_viewdirs else None
-    extract_lib.step2_fill(cfg, tree, points_fn, device=device, cross_fn=cross_fn)
+    extract_lib.step2_fill(cfg, tree, points_fn, device=device, cross_fn=cross_fn,
+                           devices=devices)
     tree.relu_sigma_()
     tree.shrink_to_fit()
     print(tree)

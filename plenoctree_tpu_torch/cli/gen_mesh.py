@@ -1,6 +1,6 @@
 """Extract an isosurface mesh from a trained NeRF's density field.
 
-Port of plenoctree_tpu/cli/gen_mesh.py for one device: the same flags
+Port of plenoctree_tpu/cli/gen_mesh.py: the same flags
 (reso, c1, c2, iso, coarse, point_chunk), a dense sigma grid over
 [c1, c2], marching tetrahedra at --iso (ops/marching.py, equal to the JAX
 package's numpy function bit for bit), the JAX affine map back to world
@@ -12,9 +12,12 @@ so the points never cross PCIe. Sigma is the raw output of the fine trunk
 (the coarse one with --coarse) through octree/extract.py::make_points_fn,
 --point_chunk rows per dispatch: with --use_pallas on a GPU each dispatch
 is one launch of the fused trunk forward kernel (csrc/fused_mlp.cu),
-which fails loudly rather than fall back. A use_viewdirs model is queried
-at zero view directions, as in extraction. Then relu, the marching on the
-device, and the OBJ.
+which fails loudly rather than fall back. With --device cuda the
+dispatches are split over every visible GPU, shaped by --mesh_shape
+(engine.eval_points, --point_chunk points per device a dispatch, the
+volume gathered on the first). A use_viewdirs model is queried at zero
+view directions, as in extraction. Then relu, the marching on the device,
+and the OBJ.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.gen_mesh --config nerf_sh/config/blender \\
@@ -28,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from plenoctree_tpu_torch import engine, parallel
 from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.octree.extract import make_points_fn
 from plenoctree_tpu_torch.ops.marching import marching_tetrahedra, save_obj
@@ -69,26 +73,31 @@ def device_grid(axes, device):
     return torch.stack(torch.meshgrid(*ax, indexing="ij"), dim=-1).reshape(-1, 3)
 
 
-def sigma_grid(points_fn, grid, reso, chunk):
-    """relu(raw sigma) at the grid's points, chunk points per dispatch, as
-    an [X, Y, Z] f32 volume on the grid's device."""
-    sigma = torch.empty(grid.shape[0], dtype=torch.float32, device=grid.device)
-    for i in range(0, grid.shape[0], chunk):
-        _, s = points_fn(grid[i:i + chunk])
-        sigma[i:i + chunk] = s[:, 0]
+def sigma_grid(points_fn, grid, reso, chunk, devices=None):
+    """relu(raw sigma) at the grid's points, chunk points per device a
+    dispatch (split over `devices` where given), as an [X, Y, Z] f32 volume
+    on the grid's device."""
+    per_call = chunk * (len(devices) if devices else 1)
+    sigma = engine.eval_points(lambda p: points_fn(p)[1][:, 0], grid, per_call,
+                               devices).to(grid.device)
     sigma = torch.maximum(sigma, torch.zeros((), device=grid.device))
     return sigma.reshape(reso)
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
     """Returns {"path", "vertices", "triangles", "sigma_max", "seconds" (per
-    step: grid, sigma, marching, obj), "volume" (the sigma grid)}."""
+    step: grid, sigma, marching, obj), "volume" (the sigma grid)}.
+    `devices` overrides the device list the dispatches are split over."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
+    devices = parallel.cli_devices(cfg, device, devices)
+    device = devices[0]
+    if len(devices) == 1:
+        devices = None
 
     reso = _triple(cfg.reso, int)
     c1 = np.asarray(_triple(cfg.c1, float), np.float32)
@@ -106,7 +115,7 @@ def main(argv=None):
     float(grid[-1, -1])  # waits for the device
     seconds["grid"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sigma = sigma_grid(points_fn, grid, reso, cfg.point_chunk)
+    sigma = sigma_grid(points_fn, grid, reso, cfg.point_chunk, devices)
     del grid
     sigma_max = float(sigma.max())
     seconds["sigma"] = time.perf_counter() - t0

@@ -1,13 +1,14 @@
 """Render a spherical-orbit video from a trained NeRF-SH model.
 
-Port of plenoctree_tpu/cli/gen_video.py for one device: the same flags
+Port of plenoctree_tpu/cli/gen_video.py: the same flags
 (elevation, num_views, height, width, camera_angle_x, intrin, radius, fps,
 up_axis, write_poses), the same poses (`np.linspace(-180, 180, n + 1)[:-1]`
 around the elevation), the same focal (or the mean of K[0, 0] and K[1, 1]
 of --intrin) and the same layout: `train_dir/video/e{-elev*10:03}/frames/
 {i:04}.png`, then `video.mp4` beside them. Each frame is
 engine.render_image of the newest checkpoint (the plain forward, as the
-JAX package's inference model; LLFF disparities normalised), written
+JAX package's inference model; LLFF disparities normalised; with --device
+cuda each chunk split over every visible GPU, shaped by --mesh_shape), written
 through the port's PNG writer. The mp4 is written only where imageio can
 write one; otherwise the CLI prints the JAX CLI's "mp4 write unavailable"
 line and keeps the frames, which are the product.
@@ -23,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from plenoctree_tpu_torch import engine
+from plenoctree_tpu_torch import engine, parallel
 from plenoctree_tpu_torch.data.poses import pose_spherical
 from plenoctree_tpu_torch.data.rays import generate_rays, namedtuple_map
 from plenoctree_tpu_torch.models.nerf import get_model_state
@@ -82,14 +83,17 @@ def write_mp4(path, frames, fps):
     return None
 
 
-def main(argv=None):
-    """Returns the video directory (frames/ and, where written, video.mp4)."""
+def main(argv=None, devices=None):
+    """Returns the video directory (frames/ and, where written, video.mp4).
+    `devices` overrides the device list the renders are split over."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
+    devices = parallel.cli_devices(cfg, device, devices)
+    device = devices[0]
 
     print("* Generating poses")
     render_poses = orbit_poses(cfg.num_views, cfg.elevation, cfg.radius, cfg.up_axis)
@@ -121,7 +125,7 @@ def main(argv=None):
         print(f"** View {i + 1}/{cfg.num_views}")
         pred_color, _, _ = engine.render_image(
             model, namedtuple_map(lambda x: x[i], rays), chunk=cfg.chunk, device=device,
-            normalize_disp=cfg.dataset == "llff",
+            normalize_disp=cfg.dataset == "llff", devices=devices,
         )
         io_utils.save_img(pred_color, os.path.join(frames_dir, f"{i:04}.png"))
         frames.append(pred_color)

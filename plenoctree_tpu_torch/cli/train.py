@@ -1,7 +1,7 @@
 """NeRF-SH training CLI.
 
-Port of plenoctree_tpu/cli/train.py for one device: the training step of
-engine.py (the fused trunk kernels with --use_pallas on a GPU), restore on
+Port of plenoctree_tpu/cli/train.py: the training step of engine.py (the
+fused trunk kernels with --use_pallas on a GPU), restore on
 start, `checkpoint_<step>` files every --save_every steps (the JAX
 package's msgpack format), metrics.jsonl (and TensorBoard events where
 tensorboardX is importable) every --print_every steps, an in-train render
@@ -11,24 +11,44 @@ render/), and timings.txt (step 0 at the start, then each render step;
 --profile_start_step S, torch.profiler (CPU, and CUDA on a GPU) records
 steps S to S + --profile_steps and writes a Chrome trace under
 `<train_dir>/profile/`, as the JAX CLI's jax.profiler hooks trace those
-steps. Not ported: jax.distributed / multi-host and the multi-host RNG
-fold (ROADMAP.md A8).
+steps.
+
+Data parallel under `python -m torch.distributed.run` (the JAX CLI's
+jax.distributed run): one process per device, each rank on cuda:LOCAL_RANK
+(or every rank on the one --device named, e.g. `--device cuda:0
+--dist_backend gloo` or `--device cpu`), taking batch_size // world rays
+a step from its own sampler; rank 0's initial or restored parameters are
+broadcast, the gradients averaged by one all-reduce a step (engine.py).
+Stratified and fine samples are drawn per rank (the JAX CLI's
+fold_in(rng, process_index)), the sparsity points alike on every rank.
+Rank 0 alone writes metrics, TensorBoard events, timings.txt, checkpoints,
+renders and the profiler trace. --mesh_shape, where given, must name the
+world size as its data axis. Each rank ends with one line: its steps, its
+ms/step after the first step (renders and saves left out; on ranks other
+than 0 the wait for rank 0's renders and saves falls into the next
+all-reduce), the all-reduce's median ms/step and its trunk-kernel
+launches.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.train --config nerf_sh/config/blender \\
       --dataset synthetic --train_dir <dir> --use_pallas --compute_dtype bfloat16 \\
       --batch_size 4096 --image_batching --device cuda
+  python -m torch.distributed.run --nproc_per_node 8 -m plenoctree_tpu_torch.cli.train \\
+      <the same flags>                    # one rank per GPU, NCCL
 """
 
 import argparse
+import contextlib
 import gc
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from plenoctree_tpu_torch import engine
+from plenoctree_tpu_torch import parallel
 from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.ops.metrics import compute_psnr, compute_ssim
@@ -48,20 +68,26 @@ def build_parser():
     )
     parser.add_argument(
         "--device", default="cuda",
-        help="torch device to train on; 'cuda' raises when there is no GPU",
+        help="torch device to train on; 'cuda' raises when there is no GPU (under "
+             "torch.distributed.run: cuda:LOCAL_RANK)",
+    )
+    parser.add_argument(
+        "--dist_backend", default="", choices=["", "nccl", "gloo"],
+        help="process-group backend under torch.distributed.run (empty: nccl on CUDA "
+             "devices, gloo on the CPU; several ranks on one GPU need gloo)",
     )
     config_lib.add_flags(parser)
     return parser
 
 
 SEED = 20200823  # the JAX CLI's PRNGKey seed; init and per-step sampling
+SP_SEED = 20200824  # the sparsity points' stream, alike on every rank
 
 
-def _device(name):
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
-    return dev
+def step_seed(seed, step, rank=0):
+    """A generator seed for one step (and rank): the step and rank folded
+    into `seed`, as jax.random.fold_in folds them into the JAX CLI's key."""
+    return int(np.random.SeedSequence([seed, rank, step]).generate_state(1)[0])
 
 
 class _Profile:
@@ -104,39 +130,82 @@ def main(argv=None):
         raise ValueError("train_dir must be set. None set now.")
     if cfg.dataset != "synthetic" and cfg.data_dir is None:
         raise ValueError("data_dir must be set. None set now.")
-    device = _device(cfg.device)
-    np.random.seed(20201473)
-    os.makedirs(cfg.train_dir, exist_ok=True)
-    render_dir = os.path.join(cfg.train_dir, "render")
-    os.makedirs(render_dir, exist_ok=True)
-    timings = io_utils.TimingsLog(os.path.join(cfg.train_dir, "timings.txt"))
-    timings.write(0)
+    rank, world, device = parallel.init_distributed(cfg.dist_backend or None, cfg.device)
+    grouped = parallel.mesh.default_group() is not None
+    try:
+        out = _train(cfg, rank, world, device)
+        if grouped:
+            torch.distributed.barrier()
+        return out
+    finally:
+        if grouped:
+            torch.distributed.destroy_process_group()
 
-    print("* Load train data")
+
+def _train(cfg, rank, world, device):
+    if cfg.mesh_shape:
+        try:
+            parallel.mesh.parse_mesh_shape(cfg.mesh_shape, world)
+        except ValueError as e:
+            raise ValueError(
+                f"{e}: the train CLI runs one device per rank ({world} here); launch "
+                "one process per device with python -m torch.distributed.run"
+            ) from None
+    lead = rank == 0
+    np.random.seed(20201473 + rank)
+    render_dir = os.path.join(cfg.train_dir, "render")
+    if lead:
+        os.makedirs(render_dir, exist_ok=True)
+        timings = io_utils.TimingsLog(os.path.join(cfg.train_dir, "timings.txt"))
+        timings.write(0)
+
+    say = print if lead else (lambda *a, **k: None)  # the JAX CLI's h0print
+    say("* Load train data")
     dataset = get_dataset("train", cfg)
-    print("* Load test data")
+    say("* Load test data")
     test_dataset = get_dataset("test", cfg)
-    print("* Load model")
+    say("* Load model")
     model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
+    group = parallel.mesh.default_group()
+    if group is not None:
+        parallel.broadcast_params_(model, 0, group)
+        print(f"* Rank {rank} of {world} on {device} "
+              f"({torch.distributed.get_backend(group)})", flush=True)
     init_step = state.step + 1
-    train_step = engine.make_train_step(model, cfg)
+    train_step = engine.make_train_step(model, cfg, group)
     lr_fn = schedule_from_config(cfg)
     gen = torch.Generator(device=device)
-    profiler = _Profile(cfg, device)
+    sp_gen = torch.Generator(device=device)
+    profiler = _Profile(cfg, device) if lead else None
+    if cfg.use_pallas and device.type == "cuda":
+        from plenoctree_tpu_torch.kernels import fused_mlp
 
-    with MetricsWriter(cfg.train_dir) as writer:
+        launches0 = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
+
+    with (MetricsWriter(cfg.train_dir) if lead else contextlib.nullcontext()) as writer:
         gc.disable()
         stats_trace = []
         t_loop_start = time.time()
+        t_train, t_aside = None, 0.0  # from the end of the first step; renders and saves
         batches = engine.device_batches(dataset, device)
         for step in range(init_step, cfg.max_steps + 1):
-            gen.manual_seed(SEED + step)  # resume-stable, like fold_in(rng, step)
-            profiler.before(step)
-            state, stats, _ = train_step(state, next(batches), gen)
-            profiler.after(step)
-            stats_trace.append(stats)
+            # Resume-stable, like fold_in(rng, step); per rank like the JAX
+            # CLI's fold_in(rng, process_index), the sparsity points alike.
+            gen.manual_seed(step_seed(SEED, step, rank))
+            sp_gen.manual_seed(step_seed(SP_SEED, step))
+            if lead:
+                profiler.before(step)
+            state, stats, _ = train_step(state, next(batches), gen, sp_generator=sp_gen)
+            if t_train is None:  # the first step pays the warm-ups
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_train = time.time()
             if step % cfg.gc_every == 0:
                 gc.collect()
+            if not lead:
+                continue
+            profiler.after(step)
+            stats_trace.append(stats)
 
             if step % cfg.print_every == 0:
                 trace = torch.stack([torch.stack(list(s)) for s in stats_trace]).cpu().numpy()
@@ -167,6 +236,7 @@ def main(argv=None):
                     + f"lr={lr:0.2e}, {rays_per_sec:0.0f} rays/sec",
                     flush=True,
                 )
+            t_aside_start = time.time()
             if step % cfg.save_every == 0:
                 print("* Saving")
                 ckpt_utils.save_checkpoint(cfg.train_dir, state, step)
@@ -198,12 +268,25 @@ def main(argv=None):
                 vis = (np.clip(vis, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
                 write_png(os.path.join(render_dir, "{:010}.png".format(step)), vis)
                 t_loop_start += time.time() - t_eval_start
-        profiler.after(cfg.max_steps, last=True)
+            t_aside += time.time() - t_aside_start
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        n_steps = cfg.max_steps + 1 - init_step
+        ms_step = (time.time() - (t_train or time.time()) - t_aside) * 1e3 / max(n_steps - 1, 1)
+        if lead:
+            profiler.after(cfg.max_steps, last=True)
         gc.enable()
-    timings.close()
-
-    if cfg.max_steps % cfg.save_every != 0:
-        ckpt_utils.save_checkpoint(cfg.train_dir, state, cfg.max_steps)
+    line = f"* rank {rank}/{world}: {n_steps} steps, {ms_step:.3f} ms/step"
+    if group is not None:
+        line += f", all-reduce {train_step.all_reduce_ms() or 0.0:.3f} ms/step"
+    if cfg.use_pallas and device.type == "cuda":
+        line += (f", trunk launches fwd {fused_mlp.fwd_launches - launches0[0]}"
+                 f" bwd {fused_mlp.bwd_launches - launches0[1]}")
+    print(line, flush=True)
+    if lead:
+        timings.close()
+        if cfg.max_steps % cfg.save_every != 0:
+            ckpt_utils.save_checkpoint(cfg.train_dir, state, cfg.max_steps)
     return model, state
 
 

@@ -2,8 +2,10 @@
 and Synthetic.
 
 Port of plenoctree_tpu/data/datasets.py. Batches leave this module as host
-numpy; the renderer moves what it needs to its device. Differences from the
-JAX package: a single host (no jax.process_count), no prefetch thread
+numpy; the renderer moves what it needs to its device. Under a process
+group each rank's train split serves batch_size // world rays (the JAX
+package's per-host split), from a sampler seeded with the rank. Differences
+from the JAX package: no prefetch thread
 (batches are built on demand), a seeded batch sampler, and images are read
 with the port's own PNG decoder (`utils/png.py`) and downsampled with a
 numpy k x k box mean (`_box_mean`, cv2's INTER_AREA at an integer factor),
@@ -21,6 +23,7 @@ import numpy as np
 from plenoctree_tpu_torch.data import poses as pose_utils
 from plenoctree_tpu_torch.data.rays import Rays, convert_to_ndc, generate_rays, namedtuple_map
 from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
+from plenoctree_tpu_torch.parallel import mesh as mesh_lib
 from plenoctree_tpu_torch.utils.png import is_png, read_png
 
 
@@ -54,10 +57,15 @@ class Dataset:
             self._test_init(args)
         else:
             raise ValueError(f"split must be train/val/test, got {split}")
-        self.batch_size = args.batch_size
+        rank, world = mesh_lib.world()
+        if split == "train" and args.batch_size % world:
+            raise ValueError(
+                f"--batch_size {args.batch_size} does not divide over {world} ranks"
+            )
+        self.batch_size = args.batch_size // world
         self.image_batching = args.image_batching
         self.render_path = args.render_path
-        self._rng = np.random.default_rng(0)  # training batch sampler
+        self._rng = np.random.default_rng(rank)  # training batch sampler, one stream per rank
 
     def __iter__(self):
         return self

@@ -5,8 +5,9 @@ Port of plenoctree_tpu/octree/evaluate.py (parity: octree/nerf/utils.py
 (`VolumeRenderer`, per-ray hit ordering, svox semantics; NDC for LLFF
 configs); `--fast_eval` opts into the tile renderer, the serving path.
 LPIPS uses the port's VGG-LPIPS (ops/lpips.py) when its weights file is
-available, else NaN. Multi-device tile serving (`--shard_devices`) is not
-ported and raises.
+available, else NaN. `--fast_eval --shard_devices N` (N > 1) shards the
+tile compositing over the first N CUDA devices (TileRenderer(mesh=...));
+more than are visible raises.
 """
 
 import numpy as np
@@ -27,11 +28,17 @@ def eval_octree(tree, dataset, cfg, want_lpips=True, want_frames=False, device="
     if getattr(cfg, "fast_eval", False):
         from plenoctree_tpu_torch.octree.tile_render import TileRenderer
 
-        if int(getattr(cfg, "shard_devices", 0) or 0) > 1:
-            raise NotImplementedError(
-                "--shard_devices > 1 (multi-device tile serving) is not ported "
-                "yet; see ROADMAP.md"
-            )
+        mesh = None
+        nshard = int(getattr(cfg, "shard_devices", 0) or 0)
+        if nshard > 1:
+            from plenoctree_tpu_torch.parallel import make_mesh
+
+            visible = torch.cuda.device_count()
+            if nshard > visible:
+                raise ValueError(
+                    f"--shard_devices {nshard} but {visible} CUDA devices are visible"
+                )
+            mesh = make_mesh(devices=[torch.device("cuda", i) for i in range(nshard)])
         thr = 1e-2 if not cfg.no_early_stop else 0.0
         tile_r = TileRenderer(
             tree,
@@ -39,6 +46,7 @@ def eval_octree(tree, dataset, cfg, want_lpips=True, want_frames=False, device="
             sigma_thresh=thr,
             stop_thresh=thr,
             ndc=ndc_config,
+            mesh=mesh,
             device=device,
         )
         dev = tile_r.device

@@ -8,7 +8,12 @@ samples per leaf, alpha-weighted for RGBA trees). Tree bookkeeping is host
 numpy; the NeRF queries go through a `points_fn` on the device
 (`make_points_fn`: the model's raw trunk outputs, through the fused trunk
 kernel with --use_pallas on a GPU), and only sigma (step 0/1) or the
-per-leaf means (step 2) come back to the host.
+per-leaf means (step 2) come back to the host. Over several devices
+(the extract CLI's --mesh_shape) every query goes through
+engine.eval_points: each dispatch of `--point_chunk` points per device,
+split over the devices, each slice on a model replica of its device (the
+fused trunk kernel on each GPU with --use_pallas); the jitter stream and
+the tree are the same as on one device.
 
 A use_viewdirs model (nerf_sh/config/misc/proj) is converted by SH
 projection: steps 0 and 1 read sigma at zero view directions, and step 2
@@ -38,6 +43,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from plenoctree_tpu_torch import engine
 from plenoctree_tpu_torch.octree.grid_weight import calculate_grid_weights
 from plenoctree_tpu_torch.ops import sh_project
 
@@ -70,15 +76,21 @@ def _grid_points(reso, offset, invradius, z_min=None, z_max=None):
 
 def make_points_fn(model, device, coarse=False):
     """points [N, 3] (numpy f32, or a tensor) -> (raw_rgb [N, C*K],
-    raw_sigma [N, 1]), f32 tensors on `device`: the fine trunk's raw
-    outputs (the coarse one's with `coarse`; no activation), as the JAX
-    CLI's eval_points_raw; a use_viewdirs model is queried at zero view
-    directions (sigma does not depend on them)."""
+    raw_sigma [N, 1]), f32 tensors: the fine trunk's raw outputs (the
+    coarse one's with `coarse`; no activation), as the JAX CLI's
+    eval_points_raw; a use_viewdirs model is queried at zero view
+    directions (sigma does not depend on them). Host points run on
+    `device`; a tensor runs where it lies, on the model's replica there
+    (engine.replica)."""
 
     @torch.no_grad()
     def points_fn(points):
-        pts = torch.as_tensor(points, dtype=torch.float32).to(device)
-        raw_rgb, raw_sigma = model.eval_points_raw(pts, coarse=coarse)
+        if isinstance(points, torch.Tensor):
+            pts = points.float()
+        else:
+            pts = torch.as_tensor(points, dtype=torch.float32).to(device)
+        m = engine.replica(model, pts.device)
+        raw_rgb, raw_sigma = m.eval_points_raw(pts, coarse=coarse)
         return raw_rgb.float(), raw_sigma.float()
 
     return points_fn
@@ -103,11 +115,18 @@ def _as_tensor(x, device):
     return torch.as_tensor(x, dtype=torch.float32).to(device)
 
 
-def _eval_sigma(points_fn, grid, chunk):
-    """Chunked sigma-only grid evaluation (only sigma leaves the device)."""
+def _per_call(devices):
+    """Devices a dispatch is split over (1 without a list)."""
+    return len(devices) if devices else 1
+
+
+def _eval_sigma(points_fn, grid, chunk, devices=None):
+    """Chunked sigma-only grid evaluation (only sigma leaves the device),
+    `chunk` points per device a dispatch, split over `devices` where given."""
     out = np.empty(grid.shape[0], np.float32)
+    chunk = chunk * _per_call(devices)
     for i in range(0, grid.shape[0], chunk):
-        _, sigma = points_fn(grid[i : i + chunk])
+        _, sigma = engine.eval_points(points_fn, grid[i : i + chunk], chunk, devices)
         out[i : i + chunk] = torch.as_tensor(sigma).reshape(-1).float().cpu().numpy()
     return out
 
@@ -130,9 +149,10 @@ def sg_extra_data(sg_lambda, sg_mu_spher):
     return np.concatenate([lam[:, None], mu], axis=-1).astype(np.float32)
 
 
-def auto_scale(cfg, center, radius, points_fn, device="cpu"):
+def auto_scale(cfg, center, radius, points_fn, device="cpu", devices=None):
     """Shrink the bbox to the sigma support (parity: extraction.py:244-286);
-    `device` is where points_fn evaluates (it sizes the dispatches)."""
+    `device` is where points_fn evaluates (it sizes the dispatches), or
+    `devices` a list it is split over."""
     print("* Step 0: Auto scale")
     reso = 2**cfg.init_grid_depth
     radius = np.asarray(radius, np.float32)
@@ -141,7 +161,7 @@ def auto_scale(cfg, center, radius, points_fn, device="cpu"):
     offset = 0.5 * (1.0 - center / radius)
     grid = _grid_points(reso, offset, scale, cfg.z_min, cfg.z_max)
 
-    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device))
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device), devices)
     approx_delta = 2.0 / reso
     sigma_thresh = -np.log(1.0 - cfg.scale_alpha_thresh) / approx_delta
     grid = grid[sigmas >= sigma_thresh]
@@ -153,15 +173,16 @@ def auto_scale(cfg, center, radius, points_fn, device="cpu"):
     return ((lc + uc) * 0.5).tolist(), ((uc - lc) * 0.5).tolist()
 
 
-def step1_build(cfg, tree, points_fn, dataset, device="cpu"):
+def step1_build(cfg, tree, points_fn, dataset, device="cpu", devices=None):
     """Dense grid eval -> sigma/weight mask -> refine to init_grid_depth.
-    The weight mask's march runs on `device`."""
+    The weight mask's march runs on `device`; the grid's sigma over
+    `devices` where given."""
     print("* Step 1: Grid eval")
     reso = 2 ** (cfg.init_grid_depth + 1)
     grid = _grid_points(reso, tree.offset, tree.invradius, cfg.z_min, cfg.z_max)
     print("  init grid", grid.shape)
 
-    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device))
+    sigmas = _eval_sigma(points_fn, grid, _point_chunk(cfg, device), devices)
     approx_delta = 2.0 / reso
     sigma_thresh = -np.log(1.0 - cfg.alpha_thresh) / approx_delta
 
@@ -253,12 +274,14 @@ def _step2_project(cfg, tree, cross_fn, sel, corner, size, rng, device):
     return tree
 
 
-def step2_fill(cfg, tree, points_fn, rng=None, device="cpu", cross_fn=None):
+def step2_fill(cfg, tree, points_fn, rng=None, device="cpu", cross_fn=None, devices=None):
     """Antialiased leaf fill of the leaves at the tree's full depth: the
     mean of samples_per_cell jittered samples per leaf (alpha-weighted
-    colour for RGBA trees), reduced on `device`; for a use_viewdirs model
-    (cfg.use_viewdirs) each sample is projected onto SH through
-    `cross_fn` (make_cross_fn) instead."""
+    colour for RGBA trees), reduced on `device` (the samples evaluated over
+    `devices` where given, the outputs gathered on devices[0], which is
+    `device`); for a use_viewdirs model (cfg.use_viewdirs) each sample is
+    projected onto SH through `cross_fn` (make_cross_fn) on `device`
+    instead."""
     print("* Step 2: AA", cfg.samples_per_cell)
     rng = rng or np.random.default_rng(20200823)
     S = cfg.samples_per_cell
@@ -276,11 +299,11 @@ def step2_fill(cfg, tree, points_fn, rng=None, device="cpu", cross_fn=None):
             raise ValueError("step 2 of a use_viewdirs model needs cross_fn (make_cross_fn)")
         with torch.no_grad():
             return _step2_project(cfg, tree, cross_fn, sel, corner, size, rng, device)
-    chunk_size = max(1, _point_chunk(cfg, device) // S)
+    chunk_size = max(1, _point_chunk(cfg, device) // S) * _per_call(devices)
 
     with torch.no_grad():
         for lo, hi, points in _jitter_chunks(tree, corner, size, S, chunk_size, rng):
-            rgb, sigma = points_fn(points)
+            rgb, sigma = engine.eval_points(points_fn, points, chunk_size * S, devices)
             rgb = _as_tensor(rgb, device).reshape(hi - lo, S, -1)
             sigma = _as_tensor(sigma, device).reshape(hi - lo, S, 1)
             if is_rgba:

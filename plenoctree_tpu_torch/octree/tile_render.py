@@ -21,9 +21,10 @@ algorithm). The three stages keep their JAX structure:
 NDC serving (LLFF forward-facing scenes, `ndc=make_ndc_config(...)`)
 converts each ray on the device as data/rays.py::convert_to_ndc does, so
 origins are per ray; the quad-group masks then come from the AABB of each
-group's segment endpoints, since NDC rays share no apex. Unported here
-(raises NotImplementedError): multi-device sharding (`mesh`), listed in
-ROADMAP.md.
+group's segment endpoints, since NDC rays share no apex. Over a mesh of
+devices (`TileRenderer(mesh=...)`, the JAX renderer's shard_map) the
+compositing is split by tile range; phase 1 stays on the first device
+(sharding it is ROADMAP.md A9).
 """
 
 import warnings
@@ -632,6 +633,15 @@ class TileRenderer:
     it rounds the TPU kernel's matmul operands to bf16; here every stage
     computes in f32 regardless. The TPU-only knobs (nbuf, interpret,
     ablate) are not carried over.
+
+    `mesh` (parallel/mesh.py::make_mesh; a device may repeat) shards the
+    compositing over its devices, as the JAX renderer's shard_map does:
+    phase 1 runs on the first device (`device` is then ignored), the tile
+    axis is padded to a device multiple (padded tiles carry no pieces),
+    each device composites its slice against its own replica of the soa
+    (the kernel on its own stream on a GPU), and the slices are gathered on
+    the first device. Tiles are independent, so the frame is bitwise the
+    one-device frame.
     """
 
     def __init__(
@@ -657,10 +667,8 @@ class TileRenderer:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device tile serving (mesh / --shard_devices) is not "
-                "ported yet; see ROADMAP.md"
-            )
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device, "TileRenderer")
         # LLFF forward-facing serving: {"focal", "width", "height"} of the
         # capture (octree/renderer.py::make_ndc_config); None for pinhole.
@@ -694,6 +702,18 @@ class TileRenderer:
             self.index[k] = torch.as_tensor(index[k], dtype=_F32).to(dev).contiguous()
         for k in ("csr", "base"):
             self.index[k] = torch.as_tensor(index[k], dtype=_I32).to(dev).contiguous()
+        self._slots = None
+        if mesh is not None:
+            for d in mesh.devices:
+                resolve_device(d, "TileRenderer")
+            soas = {}  # one soa replica per distinct device
+            self._slots = []
+            for d in mesh.devices:
+                d = torch.device(d)
+                if d not in soas:
+                    soas[d] = self.index["soa"].to(d)
+                stream = torch.cuda.Stream(d) if d.type == "cuda" else None
+                self._slots.append((d, soas[d], stream))
         self.grid_c = grid_c
         self.fine_c2 = int(self.index["fine_c2"])
         self.rcap = rcap
@@ -919,7 +939,10 @@ class TileRenderer:
         p2_args, n_total, n_chunks, w1_over = tile_inputs(
             c2w, idx["csr"], idx["base"], self.extra_data, idx["blk_bbox"]
         )
-        out = composite_tiles(*p2_args, idx["soa"], **self._kernel_kw)
+        if self._slots is None:
+            out = composite_tiles(*p2_args, idx["soa"], **self._kernel_kw)
+        else:
+            out = self._composite_sharded(p2_args)
         rgb = out[:, :, :nc]
         light = out[:, :, nc]
         img = rgb + light[..., None] * self.opts.background_brightness
@@ -932,6 +955,43 @@ class TileRenderer:
             tail = torch.stack([n_max, nc_max, w1_max]).to(_I32).view(torch.uint8)
             return torch.cat([img8.reshape(-1), tail])
         return img, n_max, nc_max, w1_max
+
+    def _composite_sharded(self, p2_args):
+        """The compositing over the mesh: the tile axis zero-padded to a
+        device multiple (a padded tile's meta says 0 pieces), one slice per
+        device composited on that device (on its own stream on a GPU,
+        every slice launched before any is gathered), the outputs gathered
+        on the first device without the padding."""
+        n_tiles = p2_args[0].shape[0]
+        ndev = len(self._slots)
+        pad = -n_tiles % ndev
+        if pad:
+            p2_args = tuple(
+                torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))]) for a in p2_args
+            )
+        k = (n_tiles + pad) // ndev
+        main = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        outs = []
+        for i, (dev, soa, stream) in enumerate(self._slots):
+            args = [a[i * k : (i + 1) * k] for a in p2_args]
+            if stream is None:
+                outs.append(composite_tiles(*[a.to(dev) for a in args], soa, **self._kernel_kw))
+                continue
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                args = [a.to(dev, non_blocking=True) for a in args]
+                out = composite_tiles(*args, soa, **self._kernel_kw)
+            for a in args:
+                a.record_stream(stream)
+            outs.append((out, stream))
+        if main is None:
+            return torch.cat(outs)[:n_tiles]
+        gathered = []
+        for out, stream in outs:
+            main.wait_stream(stream)
+            out.record_stream(main)
+            gathered.append(out.to(self.device, non_blocking=True))
+        return torch.cat(gathered)[:n_tiles]
 
     def _fetch(self, out, height, width):
         """Device payload -> (img, n_max, nc_max, w1_over) on the host."""

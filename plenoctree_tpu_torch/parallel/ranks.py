@@ -1,0 +1,214 @@
+"""Run a function on the ranks of a local process group, and the
+data-parallel train-step check that the tests and chip_smoke.py run on it.
+
+`run_ranks("pkg.module:function", world, kwargs)` starts `world` Python
+processes, joins them into one process group through a FileStore in a
+fresh temporary directory (no port to collide on), calls
+`function(rank, world, **kwargs)` in each and returns the ranks' return
+values. A rank that fails, or a group that outlives `timeout` seconds,
+kills every rank and raises with the failing rank's log.
+
+`train_steps(rank, world, ...)` runs N steps of engine.make_train_step on
+this rank's rows of the same global batches (and handed-in draws), the
+gradients averaged over the group, and returns what a comparison needs:
+the stats, the gradients given to Adam, and the parameters and Adam
+moments after each step.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def run_ranks(target, world, kwargs=None, backend="gloo", timeout=120, threads=None):
+    """[function(rank, world, **kwargs) for every rank], each rank in its own
+    process, joined by a `backend` process group."""
+    with tempfile.TemporaryDirectory(prefix="pn_ranks_") as tmp:
+        with open(os.path.join(tmp, "kwargs.pkl"), "wb") as f:
+            pickle.dump(kwargs or {}, f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        env.setdefault("OMP_NUM_THREADS", str(threads or max(1, (os.cpu_count() or 2) // world)))
+        procs = []
+        for rank in range(world):
+            log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "plenoctree_tpu_torch.parallel.ranks", target, tmp,
+                 str(rank), str(world), backend, str(timeout)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            ), log))
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p, _ in procs):
+                failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+                if failed:
+                    time.sleep(1.0)  # let the ranks that the failure broke exit too
+                    failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+                    raise RuntimeError(f"ranks {failed} failed:\n"
+                                       + "\n".join(_tail(tmp, r) for r in failed))
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the ranks did not finish in {timeout} s:\n"
+                                       + "\n".join(_tail(tmp, r) for r in range(world)))
+                time.sleep(0.05)
+            failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"ranks {failed} failed:\n"
+                                   + "\n".join(_tail(tmp, r) for r in failed))
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        out = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _tail(tmp, rank, n=4000):
+    with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+        return f"--- rank {rank} ---\n" + f.read()[-n:]
+
+
+def _child(target, tmp, rank, world, backend, timeout):
+    import datetime
+    import importlib
+
+    import torch.distributed as dist
+
+    module, name = target.split(":")
+    fn = getattr(importlib.import_module(module), name)
+    with open(os.path.join(tmp, "kwargs.pkl"), "rb") as f:
+        kwargs = pickle.load(f)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(tmp, "store"), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout),
+    )
+    try:
+        result = fn(rank, world, **kwargs)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def collectives(rank, world):
+    """all_reduce_mean_ of rank-dependent tensors, then broadcast_params_ of
+    a Linear whose parameters are rank + 7 from rank 1: what this rank
+    holds after each (the collectives' own check)."""
+    from plenoctree_tpu_torch.parallel import mesh as mesh_lib
+
+    a = [torch.full((3,), float(rank)), torch.arange(4.0).reshape(2, 2) * (rank + 1)]
+    mesh_lib.all_reduce_mean_(a)
+    model = torch.nn.Linear(2, 3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(rank + 7.0)
+    mesh_lib.broadcast_params_(model, src=1)
+    return [t.numpy() for t in a], [p.detach().numpy() for p in model.parameters()]
+
+
+# -- the data-parallel train-step check ---------------------------------------
+
+
+def _numpy(tensors):
+    return {k: t.detach().float().cpu().numpy().copy() for k, t in tensors.items()}
+
+
+def _to_device(tree, device):
+    from plenoctree_tpu_torch.data.rays import Rays
+
+    def move(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device)
+
+    if tree is None:
+        return None
+    out = {}
+    for k, v in tree.items():
+        out[k] = Rays(*[move(r) for r in v]) if isinstance(v, tuple) else move(v)
+    return out
+
+
+def train_steps(rank, world, cfg, params, batches, draws=None, opt_state=None, device="cpu",
+                launches=False):
+    """Steps of engine.make_train_step on this rank's rows of each global
+    batch (and of each handed-in draws dict; its 'sp_points' go to every
+    rank whole), from `params` ({name: array}, the model's state_dict names)
+    and, where given, `opt_state` ({'count', 'mu', 'nu'}); where a default
+    process group exists (run_ranks makes one, of one rank too) the
+    gradients are averaged over it.
+
+    Returns {'stats': [per step {name: float}], 'grads': [per step {name:
+    array}] (what Adam was given), 'params' / 'mu' / 'nu': [before the first
+    step, then after each]} and, with `launches`, the fused trunk kernels'
+    launch counts and the all-reduce's ms per step."""
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.models.nerf import NerfModel
+    from plenoctree_tpu_torch.parallel.mesh import default_group, shard_batch
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    tcfg = config_lib.default_config(**cfg)
+    model = NerfModel(tcfg)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    model.to(device)
+    state = ckpt_utils.create_train_state(model)
+    if opt_state is not None:
+        with torch.no_grad():
+            for m in ("mu", "nu"):
+                for k, t in state.opt_state[m].items():
+                    t.copy_(torch.as_tensor(opt_state[m][k]))
+        state.opt_state["count"] = int(opt_state["count"])
+        state.step = int(opt_state["count"])
+    step_fn = engine.make_train_step(model, tcfg, default_group())
+
+    seen = []
+    real_update = ckpt_utils.adam_update
+
+    def spy(st, grads, lr):
+        seen.append(_numpy(grads))
+        real_update(st, grads, lr)
+
+    out = {"stats": [], "params": [_numpy(state.params)], "mu": [_numpy(state.opt_state["mu"])],
+           "nu": [_numpy(state.opt_state["nu"])]}
+    if launches:
+        from plenoctree_tpu_torch.kernels import fused_mlp
+
+        fused_mlp.fwd_launches = fused_mlp.bwd_launches = 0
+    ckpt_utils.adam_update = spy
+    try:
+        for k, batch in enumerate(batches):
+            local = _to_device(shard_batch(batch, rank, world), device)
+            d = None if draws is None else _to_device(shard_batch(draws[k], rank, world), device)
+            state, stats, _ = step_fn(state, local, None, d)
+            out["stats"].append({n: float(v) for n, v in zip(engine.Stats._fields, stats)})
+            out["params"].append(_numpy(state.params))
+            out["mu"].append(_numpy(state.opt_state["mu"]))
+            out["nu"].append(_numpy(state.opt_state["nu"]))
+    finally:
+        ckpt_utils.adam_update = real_update
+    out["grads"] = seen
+    if launches:
+        out["fwd_launches"] = fused_mlp.fwd_launches
+        out["bwd_launches"] = fused_mlp.bwd_launches
+        out["all_reduce_ms"] = step_fn.all_reduce_ms()
+    return out
+
+
+if __name__ == "__main__":
+    _target, _tmp, _rank, _world, _backend, _timeout = sys.argv[1:7]
+    _child(_target, _tmp, int(_rank), int(_world), _backend, float(_timeout))

@@ -144,7 +144,14 @@ _flag("profile_start_step", 0, "step to start a profiler trace (0 = off)")
 _flag("profile_steps", 5, "number of steps to trace")
 
 # Parallelism
-_flag("mesh_shape", "", "comma ints: mesh axis sizes (data[,model]); empty = all-data")
+_flag(
+    "mesh_shape",
+    "",
+    "comma ints: mesh axis sizes (data[,model]); empty = all-data. Training: the "
+    "data size must equal the torch.distributed world size; inference: it must "
+    "cover the CLI's devices (every visible GPU for --device cuda). A model "
+    "size above 1 raises (not ported)",
+)
 _flag("param_dtype", "float32", "parameter dtype")
 _flag("compute_dtype", "float32", "activation compute dtype (float32|bfloat16)")
 _flag("use_pallas", False, "use the fused kernels where available")

@@ -15,7 +15,9 @@ scene through the NDC tile path (--fast_eval), and a view-conditioned
 model projects onto SH; and, with zstandard, tensorstore, orbax, zarr and
 numcodecs blocked as well, a full-width checkpoint directory that the JAX
 package's save_checkpoint wrote restores bitwise and the gen_video and
-gen_mesh CLIs run on it."""
+gen_mesh CLIs run on it; and the data-parallel slice
+(plenoctree_tpu_torch.parallel) trains on a 2-rank gloo group whose ranks
+are blocked alike, and serves a frame sharded over CPU devices."""
 
 import json
 import os
@@ -480,3 +482,63 @@ def test_jax_checkpoint_directory_restores_without_jax_stack(tmp_path):
             want[f"{group}/{k}"] = t.numpy()
     np.savez(tmp_path / "want.npz", **want)
     _run_blocked_args(_JAX_CKPT_SCRIPT, str(tmp_path))
+
+
+_PARALLEL_SCRIPT = r"""
+import sys
+assert sys.modules["jax"] is None  # the sitecustomize block is in force
+import numpy as np
+import plenoctree_tpu_torch.parallel
+import plenoctree_tpu_torch.parallel.mesh
+from plenoctree_tpu_torch.data.rays import Rays
+from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
+from plenoctree_tpu_torch.models.nerf import construct_nerf
+from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+from plenoctree_tpu_torch.parallel import make_mesh
+from plenoctree_tpu_torch.parallel.ranks import run_ranks, train_steps
+from plenoctree_tpu_torch.utils import config as config_lib
+
+cfg = dict(net_depth=2, net_width=16, sh_deg=1, use_viewdirs=False, num_coarse_samples=4,
+           num_fine_samples=4, batch_size=32, sparsity_npoints=16, randomized=False,
+           dataset="synthetic", use_pallas=True, compute_dtype="bfloat16")
+params = {k: v.numpy() for k, v in construct_nerf(config_lib.default_config(**cfg)).state_dict().items()}
+rng = np.random.default_rng(0)
+d = rng.normal(size=(32, 3)).astype(np.float32)
+batch = {"pixels": rng.uniform(size=(32, 3)).astype(np.float32),
+         "rays": Rays(np.tile(np.float32([0, 0, 4]), (32, 1)), d,
+                      d / np.linalg.norm(d, axis=-1, keepdims=True))}
+draws = [{"sp_points": rng.uniform(-1, 1, (16, 3)).astype(np.float32)}]
+kw = dict(cfg=cfg, params=params, batches=[batch], draws=draws)
+two = run_ranks("plenoctree_tpu_torch.parallel.ranks:train_steps", 2, kw, timeout=120)
+one = train_steps(0, 1, **kw)
+for k, p in one["params"][-1].items():
+    assert np.array_equal(two[0]["params"][-1][k], two[1]["params"][-1][k]), k
+    assert np.abs(two[0]["params"][-1][k] - p).max() <= 1e-5, k
+tree = build_scene_tree(3, 1, 0.0, 0)
+_, c2ws, focal = render_synthetic_scene("test", 1, 24, True, 2.0, 6.0)
+a = TileRenderer(tree, device="cpu").render_persp(c2ws[0], 24, 24, focal)
+b = TileRenderer(tree, mesh=make_mesh(devices=["cpu"] * 3)).render_persp(c2ws[0], 24, 24, focal)
+assert np.array_equal(a, b)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_parallel_slice_runs_without_jax_stack(tmp_path):
+    """plenoctree_tpu_torch.parallel imports, a 2-rank gloo train step (its
+    ranks' processes under the same block, through a sitecustomize.py)
+    matches the one-process step, and a frame sharded over three CPU
+    devices equals the one-device frame, with the JAX stack blocked."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCK)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(site), REPO, env.get("PYTHONPATH", "")])
+    res = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    assert res.stdout.strip().endswith("OK")

@@ -408,18 +408,26 @@ def test_ndc_quad_mask_is_conservative(trees):
 
 def test_unported_branches_and_missing_gpu_raise(renderers):
     """NDC serving is ported (its parity: the NDC tests below): an NDC
-    renderer builds; multi-device serving (mesh) still raises, and so does
-    device='cuda' without a GPU."""
+    renderer builds; multi-device serving is ported too (its parity:
+    tests/test_torch_parallel.py): a renderer over a mesh of CPU devices
+    builds on the mesh's first device; device='cuda' without a GPU raises,
+    and so does a mesh that names one."""
+    from plenoctree_tpu_torch.parallel import make_mesh
+
     _, pr = renderers["sh1"]
     ndc = P.TileRenderer(pr.tree, ndc={"width": 8, "height": 8, "focal": 8.0}, device="cpu",
                          grid_c=GRID_C, index=pr.index)
     assert ndc.ndc == {"width": 8, "height": 8, "focal": 8.0}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.TileRenderer(pr.tree, mesh=object(), device="cpu")
+    sharded = P.TileRenderer(pr.tree, mesh=make_mesh(devices=["cpu", "cpu"]), grid_c=GRID_C,
+                             index=pr.index)
+    assert sharded.device == torch.device("cpu") and len(sharded.mesh) == 2
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="cuda"):
         P.TileRenderer(pr.tree, grid_c=GRID_C, index=pr.index, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        P.TileRenderer(pr.tree, grid_c=GRID_C, index=pr.index,
+                       mesh=make_mesh(devices=["cpu", "cuda"]))
 
 
 def test_eval_cli_end_to_end(tmp_path, monkeypatch):
@@ -470,15 +478,15 @@ def test_eval_without_fast_eval_raises(tmp_path, trees):
     """Without --fast_eval the eval CLI renders through the exact march
     (held to the JAX package in tests/test_torch_march_opt.py). What still
     raises: --device cuda without a GPU, on that path too, and
-    --shard_devices > 1 with --fast_eval (multi-device serving, not
-    ported)."""
+    --shard_devices above the visible GPUs with --fast_eval (multi-device
+    serving is ported: tests/test_torch_parallel.py)."""
     from plenoctree_tpu_torch.cli import evaluate as cli
 
     path = str(tmp_path / "tree.npz")
     trees["sh1"].save(path)
     base = ["--input", path, "--dataset", "synthetic", "--synthetic_resolution", "16"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(base + ["--fast_eval", "--shard_devices", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match=r"--shard_devices 99 but \d+ CUDA devices"):
+        cli.main(base + ["--fast_eval", "--shard_devices", "99", "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="cuda"):
