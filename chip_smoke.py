@@ -54,7 +54,8 @@ Phases, one line each with its wall time:
      octree/config/syn_sh16.json's extraction flags, cut to init_grid_depth
      6 (phase 21 extracts the same checkpoint at 8, and its tree takes the
      budgeted accel grid check);
-     the trunk forward kernel's launch count must be > 0 and the tree must
+     the trunk forward kernel's launch count must be > 0, the tree must be
+     built by the native host library (its build_octree count > 0) and must
      save and reload; leaf count, eval PSNR (through the exact march, the
      JAX CLI's default) and wall-clock per step; then one 800x800 exact
      march frame of that tree, timed;
@@ -84,12 +85,14 @@ Phases, one line each with its wall time:
      then a control, the same CLI run at -lr (the gradient's sign flipped),
      which must not pass the gain check;
  14. gather kernel vs plain, and the probes: every gather_sum variant (the
-     three Pallas probes' functions, and the shared-memory table) at K 256
-     x R 8192 indices into a 32k-row table, D 56, against its plain version
-     and a float64 sum (GATHER tolerance), reruns bitwise equal, with ms,
-     plain ms, embedding_bag ms and bound; then the probes' entry point
-     (`plenoctree_tpu_torch.bench_gather.run`) in process, its kernel
-     launches counted: one ns/row line per case;
+     three Pallas probes' functions with the wrapper's placement, the 32k
+     table sliced across the SMs, and with the L2 placement; the
+     shared-memory placement on a 1k-row table) at K 256 x R 8192 indices
+     into a 32k-row table, D 56, against its plain version and a float64
+     sum (GATHER tolerance from each launch's longest addition chain),
+     reruns bitwise equal, with ms, plain ms, embedding_bag ms and bound;
+     then the probes' entry point (`plenoctree_tpu_torch.bench_gather.run`)
+     in process, its kernel launches counted: one ns/row line per case;
  15. march full width: VolumeRenderer on the depth-7 tree, two 800x800
      orbit poses, exact (step 1e-5) and fast: ms/frame, K estimated and
      after regrowth, segment budget, accel level and reso, peak memory; the
@@ -122,7 +125,8 @@ Phases, one line each with its wall time:
      syn_sg25.json (published flags, --num_epochs 80 -> 2, the model flags
      as trained) on those checkpoints and the synthetic scene's views at
      32x32 (12 train, 4 test, 4 val): rc 0, two results.txt lines without
-     error, finite PSNRs, the wall-clock of each stage; then one 800x800
+     error, finite PSNRs, the wall-clock of each stage, each extraction's
+     tree built by the native host library (its `native:` line); then one 800x800
      exact march frame of the SH16 tree (depth 8), timed, its accel grid
      budgeted (phase 9's check before its cut);
  22. SG25 tiles, on an SG25 tree of the depth-7 serving tree's topology
@@ -132,7 +136,8 @@ Phases, one line each with its wall time:
      exact-mode pose's forward and backward kernels against their plain
      versions (phase 11's checks);
  23. compression: the compress CLI (--bits 16) on both fleet trees: keys,
-     palette sizes <= 2^16, MB before and after, wall-clock; the SG25 tree
+     palette sizes <= 2^16, MB before and after, wall-clock, one native
+     median cut per quantized basis function; the SG25 tree
      decoded here and rendered at 800x800 through the march, within
      COMPRESS_MIN_PSNR of the uncompressed tree's frame and
      COMPRESS_PALETTE_MIN_PSNR of the frame of the uncompressed tree with
@@ -144,13 +149,15 @@ Phases, one line each with its wall time:
      against composite_tiles_reference (KERNEL_ATOL), both times, the bound,
      the share of valid pieces whose mask is below 15; then an
      N_NDC_ORBIT-pose forward-facing orbit at 800x800, median ms/frame;
- 25. T&T train main path: an NSVF-layout scene written by the port's writer
-     (TT_VIEWS at FLEET_RES), the train CLI on nerf_sh/config/tt (SH25,
+ 25. T&T train main path (run right after phase 20): an NSVF-layout
+     scene written by the port's writer (TT_VIEWS at FLEET_RES), the train
+     CLI on nerf_sh/config/tt (SH25,
      batch 1024, 64 + 128 samples) with the fused kernels for 200 steps:
      both trunk kernels on the 1 + 75 head, PSNR rising, checkpoint_200
      restoring with equal params (phase 7 holds the SH25 head, raw and
      decoded in-kernel against a degree-4 basis, at 786,432 rows);
- 26. T&T fleet main path: the task manager as a subprocess on
+ 26. T&T fleet main path (run beside phase 21, in a thread: both fleets
+     are host-bound processes): the task manager as a subprocess on
      octree/config/tt_sh25.json as it stands ({%} scenes, --bbox_from_data,
      --split_train) cut to one scene and TT_EPOCHS of 40 epochs, with the
      trained model's flags: rc 0, a results.txt line without error, finite
@@ -341,13 +348,16 @@ OPT_STEP_OPS = {"gather": "aten::index_select", "segment_sum": "aten::index_add_
 # the initial tree).
 OPT_MIN_GAIN_DB = 1.75
 # Gather kernel vs plain (phase 14), at the probes' sizes: K x R indices
-# into a 32k-row (7.3 MB) table of N(0, 1) values, D = 56; the shared-memory
-# variant on its first 1024 rows. Each output sums n rows; kernel and plain
-# version are held to a float64 sum of the same rows: an f32 running sum
-# errs by at most 2^-24 of itself per addition, and a running sum of n
-# zero-mean terms stays within ~4 sqrt(n) rms, so tol = 2^-24 * L * 4
-# sqrt(n) rms with L the kernel's longest chain of additions (rows per lane
-# group + 16 groups + blocks): ~0.4 at these sizes.
+# into a 32k-row (7.3 MB) table of N(0, 1) values, D = 56, each variant with
+# the wrapper's own placement (the 32k-row table sliced across the SMs) and
+# with the L2 placement (the kernel's first design); the shared-memory
+# placement on the table's first 1024 rows. Each output sums n rows; kernel and plain version
+# are held to a float64 sum of the same rows: an f32 running sum errs by at
+# most 2^-24 of itself per addition, and a running sum of n zero-mean terms
+# stays within ~4 sqrt(n) rms, so tol = 2^-24 * L * 4 sqrt(n) rms with L the
+# launch's longest chain of additions (gather_sum.addition_chain: the rows
+# one lane group adds in turn, the block's groups, the finish pass; for the
+# sliced placement from this stream's longest bucket): 0.01-0.2 here.
 GATHER_K, GATHER_R, GATHER_ROWS, GATHER_SMEM_ROWS, GATHER_D = 256, 8192, 1 << 15, 1024, 56
 # The exact march (phases 15-18). The fast march frame and the served tile
 # frame of one pose (same thresholds; the tile path's within-chunk order is
@@ -482,6 +492,34 @@ def ptxas_summary(build_logs, name):
         line.strip() for line in build_logs.get(name, "").splitlines()
         if "registers" in line or "spill" in line
     )
+
+
+def native_build():
+    """The port's native host library, built by g++ from the checkout's
+    csrc/plenoctree_native.cc (with the kernels, in parallel): the run fails
+    without it, since the extract, compress and fleet phases must take the
+    native path, as the JAX package does on a host with g++."""
+    from plenoctree_tpu_torch import native
+
+    if native.get_lib() is None:
+        raise RuntimeError(f"the native host library did not build or load: {native.build_error}")
+
+
+def reset_native_calls():
+    """Zero the native library's call counters; returns the live dict, so a
+    phase reads its own calls after it ran."""
+    from plenoctree_tpu_torch import native
+
+    for k in native.calls:
+        native.calls[k] = 0
+    return native.calls
+
+
+def fleet_native_lines(fleet_dir):
+    """The extract stages' `native:` lines in a fleet's log (each stage's
+    calls to the native library, in its own process)."""
+    with open(os.path.join(fleet_dir, "fleet.log")) as f:
+        return [x.split("native:", 1)[1].strip() for x in f if x.startswith("  native:")]
 
 
 def blender_round_trip():
@@ -872,6 +910,7 @@ def extract_main_path(train_dir):
     t0 = time.time()
     out = os.path.join(ROOT, "build", "smoke", "extract", "tree.npz")
     fused_mlp.fwd_launches = 0
+    native_calls = reset_native_calls()
     steps = {}
     lines = []
 
@@ -907,7 +946,10 @@ def extract_main_path(train_dir):
         march_800_exact_ms=frame_ms, march_host_build_s=round(build_s, 2),
         accel_level=vr.arrays["accel_level"], accel_reso=vr.arrays["accel_reso"],
         K_estimated=vr.contrib_slots, K_exact=vr._get_deferred(False).K,
+        native_calls=json.dumps(native_calls),
     )
+    if native_calls["build_octree"] <= 0:
+        raise RuntimeError(f"the extract CLI did not build its tree natively: {native_calls}")
     # At this depth the full accel grid fits its budget; phase 21b holds the
     # fleet's depth-8 tree to a budgeted one.
     if not (np.isfinite(img).all() and vr.arrays["accel_level"] <= back.max_depth + 1):
@@ -1199,8 +1241,10 @@ def optimize_main_path(tree):
 
 
 def gather_vs_plain():
-    """Phase 14: every gather_sum variant against its plain version and a
-    float64 sum at the probes' sizes, with times and bounds; then the probes'
+    """Phase 14: every gather_sum variant, by placement, against its plain
+    version and a float64 sum at the probes' sizes, reruns bitwise equal,
+    with times (on the device's clock, each batch of 10 calls queued behind
+    a device spin, as bench_gather times them) and bounds; then the probes'
     entry point (bench_gather.run), the kernel's main path, in process."""
     import torch.nn.functional as F
 
@@ -1211,6 +1255,7 @@ def gather_vs_plain():
     rng = np.random.default_rng(SEED)
     dev = "cuda"
     D = GATHER_D
+    sms = G.sm_count(dev)
     table = torch.tensor(rng.normal(size=(GATHER_ROWS, D)), dtype=torch.float32, device=dev)
     small = table[:GATHER_SMEM_ROWS].contiguous()
 
@@ -1219,41 +1264,64 @@ def gather_vs_plain():
 
     kr, rk = idx(GATHER_ROWS, (GATHER_K, GATHER_R)), idx(GATHER_ROWS, (GATHER_R, GATHER_K))
     ks = idx(GATHER_SMEM_ROWS, (GATHER_K, GATHER_R))
-    variants = [  # name, index stream, table, groups, unroll, shared-memory table
-        ("vmem_u1", kr, table, 1, 1, False), ("vmem_u8", kr, table, 1, 8, False),
-        ("tile", kr, table, 8, 1, False), ("vmem_rk", rk, table, 1, 1, False),
-        ("smem_1k", ks, small, 1, 8, True),
+    variants = [  # name, index stream, table, groups, unroll, placement
+        ("vmem_u1", kr, table, 1, 1, "auto"), ("vmem_u8", kr, table, 1, 8, "auto"),
+        ("tile", kr, table, 8, 1, "auto"), ("vmem_rk", rk, table, 1, 1, "auto"),
+        ("vmem_u1_l2", kr, table, 1, 1, "l2"), ("vmem_u8_l2", kr, table, 1, 8, "l2"),
+        ("tile_l2", kr, table, 8, 1, "l2"), ("vmem_rk_l2", rk, table, 1, 1, "l2"),
+        ("smem_1k", ks, small, 1, 8, "smem"), ("smem_1k_tile", ks, small, 8, 1, "smem"),
     ]
-    lib = G.build()
+    timed = bench_gather._timer(torch.device(dev))
+
+    def ms(fn, batches=3):
+        return min(timed(lambda _: fn(), None) for _ in range(batches))
+
     res = {}
-    for name, ix, tab, groups, unroll, smem in variants:
-        run = lambda: G.gather_sum(ix, tab, groups, unroll, smem)  # noqa: E731
+    yardsticks = {}  # (stream, table, groups) -> (plain ms, embedding_bag ms, its error)
+    for name, ix, tab, groups, unroll, placement in variants:
+        run = lambda: G.gather_sum(ix, tab, groups, unroll, placement)  # noqa: E731
         out, again = run(), run()
         torch.cuda.synchronize()
         ref = G.gather_sum_reference(ix, tab, groups)
         f64 = tab.double().index_select(0, ix.reshape(-1).long()).reshape(-1, groups, D).sum(0)
         n = ix.numel()
-        blocks = lib.pn_gather_sum_blocks(n, int(smem))
-        chain = -(-n // (16 * blocks)) + 16 + blocks
+        chain = G.addition_chain(ix, tab, groups, placement, sms)
         tol = 2.0**-24 * chain * 4.0 * math.sqrt(n // groups) * float(tab.std())
         err = float((out.double() - f64).abs().max())
         plain_err = float((ref.double() - f64).abs().max())
         # embedding_bag's bags: the whole stream (G = 1), or its 8 residue
         # classes as the rows of a [8, n/8] index (made once, outside the timing).
         bags = ix.reshape(1, -1) if groups == 1 else ix.reshape(-1, groups).t().contiguous()
-        lib_err = float((F.embedding_bag(bags, tab, mode="sum").double() - f64).abs().max())
+        key = (id(ix), id(tab), groups)
+        if key not in yardsticks:
+            yardsticks[key] = (
+                ms(lambda: G.gather_sum_reference(ix, tab, groups), 1),
+                ms(lambda: F.embedding_bag(bags, tab, mode="sum"), 1),
+                float((F.embedding_bag(bags, tab, mode="sum").double() - f64).abs().max()),
+            )
+        plain_ms, library_ms, lib_err = yardsticks[key]
         distinct = int(torch.unique(ix).numel())
         bound = bound_of(n * 4 + distinct * D * 4 + groups * D * 4, float(n * D), F32_FLOPS)
         res[name] = dict(
-            ms=cuda_ms(run, 10), plain_ms=cuda_ms(lambda: G.gather_sum_reference(ix, tab, groups), 5),
-            library_ms=cuda_ms(lambda: F.embedding_bag(bags, tab, mode="sum"), 10),
+            placement=G.plan(n, *tab.shape, groups, placement, sms)["placement"],
+            ms=ms(run), plain_ms=plain_ms, library_ms=library_ms,
             max_abs_err=float((out - ref).abs().max()), err_vs_f64=err, plain_err_vs_f64=plain_err,
-            library_err_vs_f64=lib_err, tol=tol, rerun_equal=bool(torch.equal(out, again)),
-            bound_ms=bound[0], bound_by=bound[1], blocks=blocks, distinct_rows=distinct,
+            library_err_vs_f64=lib_err, chain=chain, tol=tol,
+            rerun_equal=bool(torch.equal(out, again)), bound_ms=bound[0], bound_by=bound[1],
+            distinct_rows=distinct,
         )
         if not (err <= tol and plain_err <= tol and res[name]["rerun_equal"]):
             raise RuntimeError(f"gather_sum {name} disagrees: {res[name]}")
     phase("gather kernel vs plain", t0, **{k: json.dumps(v) for k, v in res.items()})
+
+    # Where each placement's time goes: device us per call by kernel.
+    t0 = time.time()
+    split = {name: bench_gather.kernel_split(
+        lambda: G.gather_sum(ix, tab, groups, unroll, placement))
+        for name, ix, tab, groups, unroll, placement in variants
+        if name in ("vmem_u1", "tile", "vmem_u1_l2", "smem_1k")}
+    phase("gather kernels by name (us per call)", t0,
+          **{k: json.dumps({n: round(us, 2) for n, us in v.items()}) for k, v in split.items()})
 
     t0 = time.time()
     G.launches = 0
@@ -1265,7 +1333,8 @@ def gather_vs_plain():
         raise RuntimeError(f"the probes' gather_sum launches do not add up: {launches}, {probes['launches']}")
     by_case = probes["launches"]
     res["vmem_u1"]["launches"] = sum(by_case[c] for c in (
-        "pallas_vmem_u1", "pallas_vmem_u8", "gather_sum_smem_1k", "gather_sum_u8_1k", "gather_sum_u8_1m"))
+        "pallas_vmem_u1", "pallas_vmem_u8", "gather_sum_sliced_32k", "gather_sum_l2_32k",
+        "gather_sum_smem_1k", "gather_sum_u8_1k", "gather_sum_u8_1m"))
     res["tile"]["launches"] = by_case["pallas_vmem_tile"]
     res["vmem_rk"]["launches"] = by_case["pallas_vmem"]
     return res
@@ -1612,12 +1681,17 @@ def fleet_main_path(sh_dir, sg_dir):
     fleet_dir = os.path.join(ROOT, "build", "smoke", "fleet")
     tasks = bench_fleet.fleet_tasks(sh_dir, sg_dir, scene, FLEET_EPOCHS)
     rc, stages, lines, _ = bench_fleet.run_fleet(tasks, fleet_dir, gpus=FLEET_GPUS)
+    native_lines = fleet_native_lines(fleet_dir)
     phase("fleet main path", t0, rc=rc, tasks=len(tasks), workers=FLEET_GPUS, epochs=FLEET_EPOCHS,
           views=FLEET_RES,
           stage_wall_s=json.dumps(stages),
-          results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]))
+          results=json.dumps([{k: v for k, v in r.items() if k != "scene"} for r in lines]),
+          native=json.dumps(native_lines))
     if rc != 0 or len(lines) != 2 or any("error" in r for r in lines):
         raise RuntimeError(f"the fleet failed: rc {rc}, results {lines} (see {fleet_dir}/fleet.log)")
+    if len(native_lines) != len(tasks) or not all(
+            x.startswith("g++ library") and "build_octree=1" in x for x in native_lines):
+        raise RuntimeError(f"a fleet extraction did not build its tree natively: {native_lines}")
     if not all(math.isfinite(r["raw_psnr"]) and math.isfinite(r["psnr"]) for r in lines):
         raise RuntimeError(f"non-finite fleet PSNRs: {lines}")
     return bench_fleet.fleet_trees(lines)
@@ -1745,6 +1819,7 @@ def compression_main_path(trees):
     for name, src in trees.items():
         t0 = time.time()
         out_dir = os.path.join(ROOT, "build", "smoke", "compressed", name)
+        native_calls = reset_native_calls()
         compress_cli.main([src, "--out_dir", out_dir, "--bits", "16", "--overwrite"])
         wall = time.time() - t0
         dst = os.path.join(out_dir, os.path.basename(src))
@@ -1756,7 +1831,11 @@ def compression_main_path(trees):
                          kept=int((z["sigma"] > 0).sum()))
         phase(f"compression ({name})", t0, files=files, quant_colors_shape=list(pal),
               quant_map_shape=list(z["quant_map"].shape), kept_voxels=out[name]["kept"],
-              mb_before=out[name]["mb_before"], mb_after=out[name]["mb_after"], wall_s=wall)
+              mb_before=out[name]["mb_before"], mb_after=out[name]["mb_after"], wall_s=wall,
+              native_calls=json.dumps(native_calls))
+        if native_calls["median_cut"] != pal[0]:
+            raise RuntimeError(f"the compress CLI ran {native_calls['median_cut']} native median "
+                               f"cuts for {pal[0]} basis functions ({name})")
         if not {"quant_colors", "quant_map", "sigma"} <= set(files) or "data" in files:
             raise RuntimeError(f"bad compressed npz keys ({name}): {files}")
         if not pal[1] <= 2**16 or z["quant_map"].dtype != np.uint16:
@@ -1953,8 +2032,8 @@ def tt_fleet_main_path(data_root, train_root, scene_name):
     --split_holdout_prop 0.1, and its other published flags), cut to one
     scene and --num_epochs 40 -> TT_EPOCHS, plus the trained model's flags,
     on phase 25's scene and checkpoint: rc 0, one results.txt line without
-    error, finite PSNRs, the wall-clock of each stage, and the tree's
-    bbox-derived centre and radius."""
+    error, finite PSNRs, the wall-clock of each stage, the extraction's
+    `native:` line, and the tree's bbox-derived centre and radius."""
     from plenoctree_tpu_torch import bench_fleet
     from plenoctree_tpu_torch.octree import N3Tree
 
@@ -1968,6 +2047,7 @@ def tt_fleet_main_path(data_root, train_root, scene_name):
         task[key] = task[key] + TRAINED_MODEL_FLAGS
     fleet_dir = os.path.join(ROOT, "build", "smoke", "tt_fleet")
     rc, stages, lines, wall = bench_fleet.run_fleet(spec, fleet_dir)
+    native_lines = fleet_native_lines(fleet_dir)
     ok = rc == 0 and len(lines) == 1 and "error" not in lines[0]
     tree = N3Tree.load(os.path.join(train_root, scene_name, "octrees", "tree.npz")) if ok else None
     phase("T&T fleet main path", t0, rc=rc, epochs=TT_EPOCHS, views=FLEET_RES,
@@ -1976,7 +2056,7 @@ def tt_fleet_main_path(data_root, train_root, scene_name):
           bbox_center=None if tree is None else ((0.5 - tree.offset) / tree.invradius).tolist(),
           bbox_radius=None if tree is None else (0.5 / tree.invradius).tolist(),
           leaves=None if tree is None else tree.n_leaves, depth=None if tree is None else
-          tree.max_depth)
+          tree.max_depth, native=json.dumps(native_lines))
     if not ok:
         raise RuntimeError(f"the T&T fleet failed: rc {rc}, results {lines} "
                            f"(see {fleet_dir}/fleet.log)")
@@ -2668,6 +2748,7 @@ def main():
     from plenoctree_tpu_torch.cli import evaluate as eval_cli
     from plenoctree_tpu_torch.data.poses import orbit_pose
     from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
+    from plenoctree_tpu_torch import native
     from plenoctree_tpu_torch.kernels import _build
     from plenoctree_tpu_torch.kernels import fused_mlp
     from plenoctree_tpu_torch.kernels import gather_sum
@@ -2686,11 +2767,14 @@ def main():
     phase("device", t0, card=repr(kind), nvidia_smi=repr(smi), count=torch.cuda.device_count())
 
     t0 = time.time()
-    build_all([tile_composite.build, fused_mlp.build, gather_sum.build])
+    build_all([tile_composite.build, fused_mlp.build, gather_sum.build, native_build])
     phase(
         "kernel build", t0, ptxas=repr(ptxas_summary(_build.build_logs, "tile_composite")),
         trunk_ptxas=repr(ptxas_summary(_build.build_logs, "fused_mlp")),
         gather_ptxas=repr(ptxas_summary(_build.build_logs, "gather_sum")),
+        native=repr(native.summary()), native_built_in_this_run=native.build_log is not None,
+        gxx=repr(subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+                 .splitlines()[0]),
     )
 
     t0 = time.time()
@@ -2837,14 +2921,31 @@ def main():
     with kernel_switches(False):
         sg_dir = sg_train_main_path()
         nerf_eval_main_path(train_dir, sg_dir)
+        tt_args = tt_train_main_path()
     torch.cuda.empty_cache()
-    fleet_trees = fleet_main_path(train_dir, sg_dir)
+    # The two fleets are host-bound processes: the T&T fleet runs beside
+    # the synthetic one (its phase line comes from its thread).
+    tt_error = []
+
+    def tt_fleet():
+        try:
+            tt_fleet_main_path(*tt_args)
+        except BaseException as e:  # re-raised below, after the join
+            tt_error.append(e)
+
+    tt_thread = threading.Thread(target=tt_fleet)
+    tt_thread.start()
+    try:
+        fleet_trees = fleet_main_path(train_dir, sg_dir)
+    finally:
+        tt_thread.join()
+    if tt_error:
+        raise tt_error[0]
     fleet_tree_march(fleet_trees["SH16"])
     sg_tiles(tree)
     compression_main_path(fleet_trees)
     torch.cuda.empty_cache()
     with kernel_switches(False):
-        tt_fleet_main_path(*tt_train_main_path())
         llff_main_path()
         viewdirs_main_path()
     torch.cuda.empty_cache()

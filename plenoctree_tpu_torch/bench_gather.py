@@ -13,8 +13,11 @@ thing (`table[idx].sum(0)` over the whole [K, R] stream, the 4-row slices,
 the int32-stored u32 grid summed in int64 and reduced mod 2^32, the
 uniform / mostly_zero / sorted / local_32k patterns, and the scatter-add as
 one `index_add_`); their three Pallas kernels become `gather_sum` launches
-(kernels/gather_sum.py), which also run on a 1024-row table copied into
-shared memory and on the 1M-row table in HBM.
+(kernels/gather_sum.py) with the wrapper's own placement (the 32k-row table
+sliced across the SMs' shared memory, as the TPU kernels hold it in VMEM).
+The kernel also runs by placement: the 32k-row table sliced and through L2,
+a 1024-row table copied into every block's shared memory and through L2,
+and the 1M-row table in HBM.
 
 Timing: CUDA events around a batch of CALLS calls, best of 3 batches, at
 K_LO and at K_HI steps of R rays; the difference (t_hi - t_lo) / ((K_HI -
@@ -64,6 +67,27 @@ def _timer(dev):
     return ms
 
 
+def kernel_split(fn, calls=20):
+    """Device microseconds per call of each CUDA kernel that fn launches,
+    by kernel name, from one torch.profiler window over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        if t > 0:
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0]
+            split[name] = split.get(name, 0.0) + t / calls
+    return split
+
+
 def measure(run, make_idx, rays, dev, reps=3):
     """ns/row = (t_hi - t_lo) / ((K_HI - K_LO) * rays), best of `reps`."""
     timed = _timer(dev)
@@ -106,8 +130,8 @@ def run(table_rows=1 << 20, vmem_rows=1 << 15, dim=56, rays=8192, device="cuda")
     def gather_u32(g):
         return lambda idx: g.index_select(0, idx.reshape(-1)).long().sum() % (1 << 32)
 
-    def kernel(tab, groups=1, unroll=1, smem_table=False):
-        return lambda idx: G.gather_sum(idx, tab, groups, unroll, smem_table)
+    def kernel(tab, groups=1, unroll=1, placement="auto"):
+        return lambda idx: G.gather_sum(idx, tab, groups, unroll, placement)
 
     def idx_mostly_zero(K):
         idx = rng.integers(0, T, size=(K, R)).astype(np.int32)
@@ -150,10 +174,15 @@ def run(table_rows=1 << 20, vmem_rows=1 << 15, dim=56, rays=8192, device="cuda")
          f" ({grid_rows}-entry grid)"),
         ("pallas_vmem", kernel(vtable), lambda K: idx_in(vmem_rows, (R, K)),
          f" (gather_sum, [R, K] stream, {vmem_rows}-row table)"),
-        # the kernel by table size: shared memory, HBM
-        ("gather_sum_smem_1k", kernel(stable, unroll=8, smem_table=True), smem,
+        # the kernel by placement and table size: sliced, shared memory, L2, HBM
+        ("gather_sum_sliced_32k", kernel(vtable, unroll=8, placement="sliced"), vmem,
+         f" ({vmem_rows}-row table sliced across the SMs)"),
+        ("gather_sum_l2_32k", kernel(vtable, unroll=8, placement="l2"), vmem,
+         f" ({vmem_rows}-row table through L2)"),
+        ("gather_sum_smem_1k", kernel(stable, unroll=8, placement="smem"), smem,
          f" ({stable.shape[0]}-row table in shared memory)"),
-        ("gather_sum_u8_1k", kernel(stable, unroll=8), smem, f" ({stable.shape[0]}-row table)"),
+        ("gather_sum_u8_1k", kernel(stable, unroll=8, placement="l2"), smem,
+         f" ({stable.shape[0]}-row table through L2)"),
         ("gather_sum_u8_1m", kernel(table, unroll=8), hbm, f" ({T}-row table)"),
     ]
     ns, launches = {}, {}

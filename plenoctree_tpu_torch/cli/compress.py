@@ -2,8 +2,9 @@
 
 Port of plenoctree_tpu/cli/compress.py: the same argparse surface and
 output npz keys (quant_colors, quant_map, sigma, data_retained), through
-the port's numpy median cut (octree/quantize.py). Host code only: it
-takes no device.
+the port's median cut (octree/quantize.py: the native library where it
+loads, as in the JAX package, else numpy). Host code only: it takes no
+device. Its last line names the path the median cuts took (`native:`).
 
 Usage:
   python -m plenoctree_tpu_torch.cli.compress x.npz [y.npz ...] [--bits 16] [--out_dir d]
@@ -14,6 +15,7 @@ import os
 import os.path as osp
 import sys
 
+from plenoctree_tpu_torch import native
 from plenoctree_tpu_torch.octree.quantize import compress_tree_npz
 
 
@@ -58,6 +60,7 @@ def main(argv=None):
             " > Size", osp.getsize(fname) // (1024 * 1024), "MB ->",
             osp.getsize(fname_c) // (1024 * 1024), "MB",
         )
+    print("native:", native.summary())
 
 
 if __name__ == "__main__":

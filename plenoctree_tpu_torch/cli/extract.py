@@ -29,7 +29,7 @@ import os
 
 import torch
 
-from plenoctree_tpu_torch import parallel
+from plenoctree_tpu_torch import native, parallel
 from plenoctree_tpu_torch.data import get_dataset
 from plenoctree_tpu_torch.models.nerf import get_model_state
 from plenoctree_tpu_torch.octree import N3Tree
@@ -155,6 +155,7 @@ def main(argv=None, devices=None):
     tree.relu_sigma_()
     tree.shrink_to_fit()
     print(tree)
+    print("  native:", native.summary())
 
     print("* Saving", cfg.output)
     tree.save(cfg.output, compress=False)

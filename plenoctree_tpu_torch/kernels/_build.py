@@ -1,4 +1,5 @@
 """Build the CUDA sources in `csrc/` with nvcc, at first use, and load them.
+(`build_shared_library` also builds the host library of `native.py`.)
 
 Each library is compiled from the repo's own sources into
 `build/kernels/lib<name>-<hash>.so` (the hash covers the sources and the
@@ -46,6 +47,32 @@ def _nvcc():
     return found
 
 
+def build_shared_library(compiler, flags, name, paths, build_dir):
+    """Compile `paths` with `compiler flags` into build_dir/lib<name>-<hash>.so
+    unless that file exists, and return its path. The hash covers the flags
+    and the sources, so an edited source never loads a stale build; the
+    library is written to a temporary name and renamed, so processes that
+    build it at once each see a whole file. Returns (path, compiler output
+    or None when the file was already built)."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        digest.update(Path(p).read_bytes())
+    out = Path(build_dir) / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, paths)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"{os.path.basename(compiler)} failed with code {res.returncode}:\n"
+            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, res.stdout + res.stderr
+
+
 def load_library(name, sources):
     """Compile csrc/<sources> into one shared library (once) and load it.
     Calls for different names may run in parallel threads."""
@@ -54,23 +81,10 @@ def load_library(name, sources):
     with lock:
         if name in _LIBS:
             return _LIBS[name]
-        paths = [CSRC / s for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
-            digest.update(p.read_bytes())
-        out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}"
-                )
-            build_logs[name] = res.stdout + res.stderr
-            os.replace(tmp, out)
+        out, log = build_shared_library(
+            _nvcc(), NVCC_FLAGS, name, [CSRC / s for s in sources], BUILD_DIR)
+        if log is not None:
+            build_logs[name] = log
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib

@@ -2,9 +2,10 @@
 
 The port's own copy of plenoctree_tpu/octree/n3tree.py (host numpy, the
 equivalent of svox.N3Tree): the same class, arrays and npz keys, so a
-`tree.npz` written by either package loads in the other. Only the numpy
-paths are kept: construction and point queries run as vectorized numpy,
-with no native library behind them.
+`tree.npz` written by either package loads in the other. The
+construction and point queries of an N=2 tree run in the port's native
+host library (plenoctree_tpu_torch/native.py, as the JAX package's do in
+its own), with the vectorized numpy paths where it is unavailable.
 
 Storage layout (svox-compatible, npz keys as read by octree/compression.py:82-137
 and the volrend viewer):
@@ -20,6 +21,8 @@ N^3 cells are depth-0 leaves of side 1/N.
 """
 
 import numpy as np
+
+from plenoctree_tpu_torch import native
 
 
 class DataFormat:
@@ -198,6 +201,20 @@ class N3Tree:
         """
         t = self.world2tree(points) if world else np.asarray(points, np.float32)
         t = np.clip(t, 0.0, 1.0 - 1e-6).astype(np.float64)
+        native_out = None
+        if self.N == 2:  # the native descent is N=2 only, on f32 coordinates
+            native_out = native.query_points_native(
+                self.child[: self.n_internal], t.astype(np.float32), self.depth_limit
+            )
+        if native_out is not None:
+            flat, depth = native_out
+            node = flat // (self.N**3)
+            cell = flat % (self.N**3)
+            idx = np.stack(
+                [cell // (self.N * self.N), (cell // self.N) % self.N, cell % self.N],
+                axis=-1,
+            )
+            return node, idx, depth.astype(self.parent_depth.dtype)
         node = np.zeros(t.shape[0], dtype=np.int64)
         pos = t.copy()
         for _ in range(self.depth_limit + 1):
@@ -263,14 +280,33 @@ class N3Tree:
         return n_new
 
     def build_from_points(self, points, depth=None, world=True):
-        """Build the full tree structure from occupied points: `depth`
-        rounds of refine_points (octree/extraction.py:341-350). Only valid
-        on a fresh tree."""
+        """Build the full tree structure from occupied points: the same
+        arrays as `depth` rounds of refine_points (octree/extraction.py:
+        341-350), built bottom-up from the voxels' Morton codes by the
+        native library (one sort); the refine loop where the library is
+        unavailable or N != 2. Only valid on a fresh tree."""
         depth = self.depth_limit if depth is None else depth
         if self.n_internal != 1:
             raise ValueError("build_from_points requires a fresh tree")
-        for _ in range(depth):
-            self.refine_points(points, world=world)
+        t = self.world2tree(points) if world else np.asarray(points, np.float32)
+        reso = self.N ** (depth + 1)
+        coords = np.clip((t * reso).astype(np.int64), 0, reso - 1)
+        built = None
+        if self.N == 2:  # the native bottom-up builder is Morton/N=2 only
+            built = native.build_octree_native(coords.astype(np.int32), depth)
+        if built is None:
+            for _ in range(depth):
+                self.refine_points(points, world=world)
+            return self
+        child, parent_depth = built
+        n = child.shape[0]
+        self._ensure_capacity(n)
+        self.child[:n] = child
+        self.child[n:] = 0
+        self.parent_depth[:n] = parent_depth
+        self.parent_depth[0] = (-1, 0)
+        self.n_internal = n
+        self.data[:n] = 0
         return self
 
     # -- leaf data access --------------------------------------------------------

@@ -1,16 +1,22 @@
-"""Median-cut palette quantization for octree compression (host numpy).
+"""Median-cut palette quantization for octree compression (host).
 
-Port of plenoctree_tpu/octree/quantize.py, numpy only (the port has no
-native library): `quantize_median_cut` is the JAX package's numpy k-d
-median cut (all boxes split at once per level, each along its own longest
-axis at its median; one lexsort per level), and `compress_tree_npz` writes
-the same npz keys (quant_colors, quant_map, sigma, data_retained).
+Port of plenoctree_tpu/octree/quantize.py. `quantize_median_cut` runs the
+port's native median cut where its library loads (plenoctree_tpu_torch/
+native.py: `std::nth_element` per box, level by level), as the JAX
+package's does, and otherwise the JAX package's numpy k-d median cut (all
+boxes split at once per level, each along its own longest axis at its
+median; one lexsort per level). The two give different palettes at some
+sizes, so a host's two compress CLIs write the same file only when both
+take the same path. `compress_tree_npz` writes the same npz keys
+(quant_colors, quant_map, sigma, data_retained).
 """
 
 import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from plenoctree_tpu_torch import native
 
 
 def quantize_median_cut(colors, weights=None, bits=16):
@@ -29,6 +35,9 @@ def quantize_median_cut(colors, weights=None, bits=16):
     m = colors.shape[0]
     if m == 0:
         return np.zeros((0, colors.shape[1]), np.float32), np.zeros((0,), np.uint32)
+    cut = native.median_cut_native(colors, weights, bits)
+    if cut is not None:
+        return cut
     if weights is None or len(weights) == 0:
         weights = np.ones(m, np.float32)
     weights = np.asarray(weights, np.float32)
@@ -104,9 +113,9 @@ def compress_tree_npz(
         rgb = rgb.reshape(-1, 3, basis_dim)[snz]
         weights = 1.0 - np.exp(-0.01 * sigma[snz]) if weighted else None
 
-        # One median cut per basis function, on a thread each (numpy
-        # releases the GIL in its sorts, gathers and ufuncs; the results do
-        # not depend on the threads).
+        # One median cut per basis function, on a thread each (the native
+        # call releases the GIL, as numpy does in its sorts, gathers and
+        # ufuncs; the results do not depend on the threads).
         quantized = list(range(retain, basis_dim))
         with ThreadPoolExecutor(max(1, min(len(quantized), os.cpu_count() or 1))) as pool:
             cuts = dict(zip(quantized, pool.map(

@@ -1,30 +1,38 @@
 """Port parity on the CPU: the median cut and tree compression
 (plenoctree_tpu_torch/octree/quantize.py, cli/compress.py) against the JAX
-package's numpy path.
+package.
 
-The JAX quantize_median_cut uses its native library where that loads, and
-the native median cut gives another palette than the numpy path
-(tests/test_native.py checks only their mean error), so every comparison
-here runs the JAX function on its numpy path: PLENOCTREE_NO_NATIVE=1 with
-the library handle reset, by monkeypatch. Both are compared bit for bit.
+Both packages' quantize_median_cut use their native library where it
+loads, and the native median cut gives another palette than the numpy path
+(tests/test_native.py checks only their mean error). So the comparisons
+that take the `jax_numpy_path` fixture run both packages on their numpy
+paths: PLENOCTREE_NO_NATIVE=1 with both library handles reset, by
+monkeypatch. The compress CLI cases at the end run both CLIs on their
+default paths (tests/test_torch_native.py holds the native median cuts to
+each other). Everything is compared bit for bit.
 """
 
 import numpy as np
 import pytest
 
 from plenoctree_tpu import native
+from plenoctree_tpu.cli import compress as jcompress_cli
 from plenoctree_tpu.octree import quantize as jquantize
 from plenoctree_tpu.octree.n3tree import N3Tree as JaxN3Tree
+from plenoctree_tpu_torch import native as port_native
 from plenoctree_tpu_torch.cli import compress as compress_cli
 from plenoctree_tpu_torch.octree import quantize
 
 
 @pytest.fixture
 def jax_numpy_path(monkeypatch):
+    """Both packages on their numpy paths (the name is the fixture's first
+    use: the JAX side's numpy path)."""
     monkeypatch.setenv("PLENOCTREE_NO_NATIVE", "1")
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_TRIED", False)
-    assert native.median_cut_native(np.zeros((4, 3), np.float32)) is None
+    for lib in (native, port_native):
+        monkeypatch.setattr(lib, "_LIB", None)
+        monkeypatch.setattr(lib, "_TRIED", False)
+        assert lib.median_cut_native(np.zeros((4, 3), np.float32)) is None
 
 
 def _colors(m, seed, ties=False):
@@ -75,13 +83,16 @@ def test_median_cut_empty_weights_and_palette_size(jax_numpy_path):
     assert errs[0] > errs[1] > errs[2] and errs[2] < 0.05
 
 
-def _tree_npz(path, seed, basis_dim=4, depth=3):
-    """A small SH tree with seeded data, saved by the JAX package's N3Tree
-    (sigma in [0, 8), so sigma_thresh 2 keeps about three quarters)."""
+def _tree_npz(path, seed, basis_dim=4, depth=3, data_format=None, n_points=300):
+    """A small tree (SH unless `data_format` says otherwise) with seeded
+    data, saved by the JAX package's N3Tree (sigma in [0, 8), so sigma_thresh
+    2 keeps about three quarters)."""
     rng = np.random.default_rng(seed)
     tree = JaxN3Tree(data_dim=1 + 3 * basis_dim, depth_limit=depth, radius=1.0,
-                     center=(0, 0, 0), data_format=f"SH{basis_dim}")
-    tree.build_from_points(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
+                     center=(0, 0, 0), data_format=data_format or f"SH{basis_dim}",
+                     extra_data=np.ones((basis_dim, 4), np.float32)
+                     if (data_format or "").startswith("SG") else None)
+    tree.build_from_points(rng.uniform(-1, 1, (n_points, 3)).astype(np.float32))
     tree.data[...] = rng.normal(size=tree.data.shape).astype(np.float32)
     tree.data[..., -1] = rng.uniform(0, 8, tree.data.shape[:-1])
     tree.save(str(path), compress=False)
@@ -142,3 +153,23 @@ def test_compress_cli(tmp_path, capsys, jax_numpy_path):
     assert "data" in np.load(out).files
     text = capsys.readouterr().out
     assert " > skip" in text and "MB ->" in text and "Quantization enabled" in text
+    assert "native: numpy paths (PLENOCTREE_NO_NATIVE is set)" in text
+
+
+@pytest.mark.parametrize("data_format,basis_dim", [("RGBA", 1), ("SH9", 9), ("SG4", 4)])
+def test_compress_cli_equals_jax_cli_on_default_paths(data_format, basis_dim, tmp_path):
+    """One tree per format through both compress CLIs as a user runs them
+    (each package's default path: its native median cut where the library
+    loads), with --weighted, whose palettes the numpy path rounds
+    otherwise: the two files hold the same arrays, bit for bit."""
+    src = _tree_npz(tmp_path / "tree.npz", 4, basis_dim=basis_dim, depth=5,
+                    data_format=data_format, n_points=3000)
+    flags = ["--bits", "12", "--weighted"]
+    jcompress_cli.main([src, "--out_dir", str(tmp_path / "jax"), *flags])
+    compress_cli.main([src, "--out_dir", str(tmp_path / "port"), *flags])
+    za, zb = np.load(tmp_path / "jax" / "tree.npz"), np.load(tmp_path / "port" / "tree.npz")
+    assert sorted(za.files) == sorted(zb.files) and "quant_colors" in zb.files
+    assert zb["quant_colors"].shape[0] == basis_dim
+    for k in za.files:
+        assert za[k].dtype == zb[k].dtype, k
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)

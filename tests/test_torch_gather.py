@@ -110,3 +110,62 @@ def test_wrapper_checks_on_cpu():
         G.gather_sum(torch.zeros(8, dtype=torch.int32), table, groups=2)
     out = G.gather_sum(torch.tensor([1, 2, 3, 1], dtype=torch.int32), torch.arange(40.0).reshape(10, 4))
     np.testing.assert_array_equal(out.numpy(), [[28.0, 32.0, 36.0, 40.0]])
+
+
+@pytest.mark.parametrize("T,groups,placement,want", [
+    (1 << 15, 1, "auto", "sliced"), (1 << 15, 8, "auto", "sliced"), (1024, 1, "auto", "smem"),
+    (1 << 20, 1, "auto", "l2"), (1 << 15, 1, "l2", "l2"), (1024, 8, "sliced", "sliced"),
+    (264, 1, "sliced", "sliced"), (265, 8, "sliced", "sliced"), (100, 1, "sliced", "sliced"),
+])
+def test_launch_plan(T, groups, placement, want):
+    """The wrapper's layouts at the probes' sizes (K 256 x R 8192 indices,
+    D = 56, 132 SMs) and at slice boundaries: every row in exactly one
+    slice (the last one possibly short), every position in one routing
+    chunk of a whole number of warps' runs, the workspace sized to match."""
+    n, D, sms = 256 * 8192, 56, 132
+    p = G.plan(n, T, D, groups, placement, sms)
+    assert p["placement"] == want
+    if want != "sliced":
+        assert p["ws_ints"] == p["blocks"] * groups * D and p["blocks"] >= 1
+        assert p["blocks"] == (sms if want == "smem" else 8 * sms)
+        return
+    S, rps, C, L = p["S"], p["rps"], p["C"], G._CHUNK
+    assert (S - 1) * rps < T <= S * rps and rps * D * 4 <= G.SLICE_MAX_BYTES and S <= 2 * sms
+    assert L == 8192 and (C - 1) * L < n <= C * L
+    B = groups * S
+    assert p["ws_ints"] == B * C + B + n + S * groups * D
+    if T == 1 << 15:  # 125-row slices, the last one 18 rows
+        assert (S, rps, T - (S - 1) * rps) == (263, 125, 18)
+
+
+def test_launch_plan_refusals():
+    with pytest.raises(ValueError, match="placement"):
+        G.plan(64, 1024, 56, 1, "vmem")
+    with pytest.raises(ValueError, match="shared memory"):
+        G.plan(64, 2048, 56, 1, "smem")  # 2048 x 56 x 4 B > 232,448
+    with pytest.raises(ValueError, match="shared memory a slice"):
+        G.plan(64, 1 << 20, 56, 1, "sliced")
+    with pytest.raises(ValueError, match="placement"):
+        G.gather_sum(torch.zeros(4, dtype=torch.int32), torch.zeros(10, 8), placement="vmem")
+    with pytest.raises(ValueError, match="unroll"):
+        G.gather_sum(torch.zeros(4, dtype=torch.int32), torch.zeros(10, 8), unroll=4)
+
+
+def test_addition_chain():
+    """The longest f32 addition chain per placement: uniform streams spread
+    over the slices' buckets; a stream that hits one row puts every index
+    of a residue in one bucket, whose chain is then its 32-entry tiles over
+    the bucket's 16 / G warps, 4 entries of each in one slot."""
+    rng = np.random.default_rng(0)
+    n, T = 256 * 8192, 1 << 15
+    table = torch.zeros(T, 56)
+    uniform = torch.from_numpy(rng.integers(0, T, n).astype(np.int32))
+    one_row = torch.full((n,), 7, dtype=torch.int32)
+    # l2: 1056 blocks of 16 groups, 125 rows each; + 16 groups + 33 + 5.
+    assert G.addition_chain(uniform, table, 1, "l2") == 125 + 16 + 33 + 5
+    # smem: 65,536 tiles over 132 x 16 warps, 32 each; + 16 warps + 5 + 5.
+    assert G.addition_chain(uniform, table[:1024], 8, "smem") == 4 * 32 + 16 + 5 + 5
+    assert G.addition_chain(uniform, table[:1024], 1, "smem") == 4 * 32 + 4 + 16 + 5 + 5
+    # sliced: ~7,974 entries per bucket, 250-263 tiles, 16-17 per warp.
+    assert G.addition_chain(uniform, table, 1, "sliced") in (4 * 16 + 4 + 16 + 9 + 5, 4 * 17 + 4 + 16 + 9 + 5)
+    assert G.addition_chain(one_row, table, 8, "sliced") == 4 * (n // 8 // 32 // 2) + 4 + 2 + 9 + 5

@@ -651,22 +651,25 @@ def _gather_tol(n, rms=1.0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "groups,unroll,smem,rows,n",
-    [(1, 1, False, 32768, 256 * 8192), (1, 8, False, 32768, 256 * 8192),
-     (8, 1, False, 32768, 256 * 8192), (8, 8, False, 32768, 256 * 8192),
-     (1, 8, True, 1024, 256 * 8192), (8, 1, True, 1024, 64 * 8192),
-     (1, 8, False, 1 << 20, 1000003)],
+    "groups,unroll,placement,rows,n",
+    [(1, 1, "auto", 32768, 256 * 8192), (1, 8, "auto", 32768, 256 * 8192),
+     (8, 1, "auto", 32768, 256 * 8192), (8, 8, "auto", 32768, 256 * 8192),
+     (1, 8, "l2", 32768, 256 * 8192), (8, 1, "l2", 32768, 256 * 8192),
+     (1, 8, "smem", 1024, 256 * 8192), (8, 1, "smem", 1024, 64 * 8192),
+     (1, 8, "auto", 1 << 20, 1000003)],
 )
-def test_gather_sum_kernel_matches_reference(groups, unroll, smem, rows, n):
-    """Every variant at the probes' sizes (and a ragged stream on the 1M-row
-    table) against the plain version and a float64 sum; reruns equal."""
+def test_gather_sum_kernel_matches_reference(groups, unroll, placement, rows, n):
+    """Every variant at the probes' sizes (the 32k-row table sliced, "auto",
+    and through L2; the 1k-row table in shared memory; a ragged stream on
+    the 1M-row table, through L2) against the plain version and a float64
+    sum; reruns equal."""
     _need_cuda()
     rng = np.random.default_rng(rows + n + groups)
     table = torch.tensor(rng.normal(size=(rows, 56)), dtype=torch.float32, device="cuda")
     idx = torch.tensor(rng.integers(0, rows, size=n), dtype=torch.int32, device="cuda")
     before = G.launches
-    out = G.gather_sum(idx, table, groups, unroll, smem)
-    again = G.gather_sum(idx, table, groups, unroll, smem)
+    out = G.gather_sum(idx, table, groups, unroll, placement)
+    again = G.gather_sum(idx, table, groups, unroll, placement)
     torch.cuda.synchronize()
     assert G.launches == before + 2 and torch.equal(out, again)
     ref = G.gather_sum_reference(idx, table, groups)
@@ -688,9 +691,68 @@ def test_gather_sum_rejects_bad_inputs():
     with pytest.raises(ValueError, match="multiple of 4"):
         G.gather_sum(idx, torch.zeros(2048, 50, device="cuda"))
     with pytest.raises(ValueError, match="shared memory"):
-        G.gather_sum(idx, table, smem_table=True)  # 2048 x 56 x 4 B > 232,448
+        G.gather_sum(idx, table, placement="smem")  # 2048 x 56 x 4 B > 232,448
+    with pytest.raises(ValueError, match="shared memory a slice"):
+        G.gather_sum(idx, torch.zeros(1 << 20, 56, device="cuda"), placement="sliced")
+    with pytest.raises(ValueError, match="placement"):
+        G.gather_sum(idx, table, placement="vmem")
+    with pytest.raises(ValueError, match="16-byte"):
+        G.gather_sum(idx, torch.zeros(2049 * 56 + 1, device="cuda")[1:].view(2049, 56))
     with pytest.raises(ValueError):
         G.gather_sum(idx.cpu(), table)
+    assert torch.equal(G.gather_sum(idx[:0], table), torch.zeros(1, 56, device="cuda"))
+
+
+def _gather_streams(rows, S, rps, n, seed):
+    """Index streams for the sliced placement's routing: uniform; every
+    index in one slice (the last, short one); 90% of them row 0
+    (bench_gather's mostly_zero); each slice's first and last rows only."""
+    rng = np.random.default_rng(seed)
+    last = (S - 1) * rps
+    edges = np.unique(np.concatenate([np.arange(S) * rps, np.minimum(np.arange(1, S + 1) * rps, rows) - 1]))
+    mostly_zero = rng.integers(0, rows, n)
+    mostly_zero[rng.random(n) < 0.9] = 0
+    return {
+        "uniform": rng.integers(0, rows, n),
+        "one_slice": rng.integers(last, rows, n),
+        "mostly_zero": mostly_zero,
+        "slice_edges": rng.choice(edges, n),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("placement,rows", [
+    ("sliced", 264), ("sliced", 265), ("sliced", 528), ("sliced", 1000), ("sliced", 32768),
+    ("sliced", 33001), ("smem", 264), ("smem", 265), ("smem", 1000)])
+@pytest.mark.parametrize("groups", [1, 8])
+def test_gather_sum_placements_match_reference(placement, rows, groups):
+    """The sliced and shared-memory placements against the plain version
+    and a float64 sum: G = 1 and 8, [K, R] and [R, K] streams, tables at
+    and beside the slice boundaries of 132 SMs (264 one-row slices, one row
+    more, two-row slices, a short last slice), skewed streams (all in one
+    slice, mostly row 0, slice edges), reruns bitwise equal. Tolerance: each
+    f32 addition errs by at most 2^-24 of the running sum, which is at most
+    the sum of the rows' magnitudes, so |out - f64| <= 2^-24 * chain *
+    sum |rows| with chain the launch's longest addition chain."""
+    _need_cuda()
+    table = torch.tensor(np.random.default_rng(rows).normal(size=(rows, 56)), dtype=torch.float32,
+                         device="cuda")
+    p = G.plan(8192 * 24, rows, 56, groups, "sliced", G.sm_count("cuda"))
+    for name, flat in _gather_streams(rows, p["S"], p["rps"], 8192 * 24, rows + groups).items():
+        for shape in ((24, 8192), (8192, 24)):
+            idx = torch.tensor(flat.reshape(shape), dtype=torch.int32, device="cuda")
+            before = G.launches
+            out = G.gather_sum(idx, table, groups, 8, placement)
+            again = G.gather_sum(idx, table, groups, 8, placement)
+            torch.cuda.synchronize()
+            assert G.launches == before + 2 and torch.equal(out, again), (name, shape)
+            rows64 = table.double().index_select(0, idx.reshape(-1).long()).reshape(-1, groups, 56)
+            f64, mag = rows64.sum(0), rows64.abs().sum(0)
+            chain = G.addition_chain(idx, table, groups, placement, G.sm_count("cuda"))
+            tol = 2.0**-24 * chain * mag
+            assert bool(((out.double() - f64).abs() <= tol).all()), (name, shape)
+            ref = G.gather_sum_reference(idx, table, groups)
+            assert bool(((ref.double() - f64).abs() <= 2.0**-24 * idx.numel() * mag).all())
 
 
 @pytest.mark.gpu

@@ -52,6 +52,7 @@ import plenoctree_tpu_torch.data.synthetic
 import plenoctree_tpu_torch.kernels._build
 import plenoctree_tpu_torch.kernels.gather_sum
 import plenoctree_tpu_torch.kernels.tile_composite
+import plenoctree_tpu_torch.native
 import plenoctree_tpu_torch.octree
 import plenoctree_tpu_torch.octree.evaluate
 import plenoctree_tpu_torch.octree.extract
@@ -81,7 +82,7 @@ from plenoctree_tpu_torch.octree.renderer import VolumeRenderer
 img = VolumeRenderer(tree, device="cpu").render_persp(orbit_pose(0.3), 15, 15, 16.5)
 assert img.shape == (15, 15, 3) and np.isfinite(img).all() and img.min() < 0.99
 res = plenoctree_tpu_torch.bench_gather.run(40000, 1024, 8, 16, device="cpu")
-assert len(res["ns_per_row"]) == 17
+assert len(res["ns_per_row"]) == 19
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "plenoctree_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
