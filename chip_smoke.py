@@ -5,15 +5,24 @@ head, the NeRF eval, the conversion fleet and compression, real-capture
 layouts: NSVF (octree/config/tt_sh25.json), LLFF with NDC serving, and the
 view-conditioned head with extraction by SH projection; the JAX
 package's checkpoints, orbit video, mesh and the train CLI's profiler;
-and the multi-device paths, with the one card used as two devices.
+and the multi-device paths, with the one card used as two devices (and
+as two processes: inference CLIs and tensor-parallel training under
+torch.distributed.run).
 
     python3 chip_smoke.py
+
+Wherever a tile kernel is held against its plain version (phases 4, 11,
+22, 24), the kernel runs on the whole 800x800 frame and the plain version
+on PLAIN_SUBSET_TILES of its tiles, the tile with the most pieces among
+them (tiles are independent); phases 4 and 11 also time one whole-frame
+run of the plain version for the kernels line.
 
 Phases, one line each with its wall time:
   1. device: the card's name and power limit;
   2. kernel build: nvcc builds csrc/tile_composite.cu, csrc/fused_mlp.cu
      and csrc/gather_sum.cu into build/kernels/, in parallel (registers and
-     spills per kernel);
+     spills per kernel), in a thread beside phase 3's host work (its line
+     follows phase 3's);
   3. model: bakes the synthetic scene into an SH16 (data_dim 49) octree at
      depth 7 (seeded N(0, 0.05) higher-order SH coefficients) and saves it
      as build/smoke/tree.npz; then renders the CLIs' synthetic views at
@@ -21,8 +30,9 @@ Phases, one line each with its wall time:
      as a blender-layout scene with the port's PNG writer and loads it back
      through the Blender loader (at --factor 0 and 2);
   4. kernel vs plain: the CUDA tile kernel against composite_tiles_reference
-     on the phase-1 inputs of one 800x800 pose, with both times and the
-     time of the tile inputs (ray generation + phase 1) for that pose;
+     on the phase-1 inputs of one 800x800 pose (the plain version on the
+     tile subset), with both times and the time of the tile inputs (ray
+     generation + phase 1) for that pose;
   5. main path: the eval CLI (`plenoctree_tpu_torch.cli.evaluate --fast_eval
      --shard_devices 1`)
      in-process on the synthetic test views at 200x200; its kernel launch
@@ -67,8 +77,10 @@ Phases, one line each with its wall time:
      optimizer's keep_all index), one 800x800 pose: the tile kernel's
      exact-mode forward against composite_tiles_reference (KERNEL_ATOL),
      then, on that forward output and a seeded cotangent, the tile backward
-     kernel against composite_tiles_bwd_reference: errors per field group,
-     the difference between two kernel runs, times, the pieces total, and
+     kernel on the whole frame, its cotangent zeroed outside the tile
+     subset, against composite_tiles_bwd_reference on that subset:
+     errors per field group, the difference between two whole-frame kernel
+     runs, times, the pieces total, and
      one launch's float4 atomics into the gradient soa (with the non-zero
      floats they carry: one scalar atomic each in a scalar flush);
  12. optimize throughput: ms per optimizer step at 800x800 on that
@@ -79,7 +91,7 @@ Phases, one line each with its wall time:
  13. optimize main path: the optimize CLI (`plenoctree_tpu_torch.cli.optimize
      --tile_opt`) in-process on the depth-7 tree with its DC colour
      coefficients washed to 0, 12 train / 4 val synthetic views at 200x200,
-     syn_sh16's optimization flags for 2 epochs; the backward kernel's
+     syn_sh16's optimization flags for 1 epoch; the backward kernel's
      launch count must be > 0, the best val PSNR must beat the initial one
      by OPT_MIN_GAIN_DB, tree_opt.npz must load; then the eval CLI on it;
      then a control, the same CLI run at -lr (the gradient's sign flipped),
@@ -122,9 +134,9 @@ Phases, one line each with its wall time:
      ssim.txt, the PNGs read back; one 800x800 view timed (s/image);
  21. fleet main path: `python -m plenoctree_tpu_torch.cli.task_manager
      tasks.json --gpus "0 0"` (two workers on the card) on two tasks in the form of syn_sh16.json and
-     syn_sg25.json (published flags, --num_epochs 80 -> 2, the model flags
+     syn_sg25.json (published flags, --num_epochs 80 -> 1, the model flags
      as trained) on those checkpoints and the synthetic scene's views at
-     32x32 (12 train, 4 test, 4 val): rc 0, two results.txt lines without
+     16x16 (12 train, 4 test, 4 val): rc 0, two results.txt lines without
      error, finite PSNRs, the wall-clock of each stage, each extraction's
      tree built by the native host library (its `native:` line); then one 800x800
      exact march frame of the SH16 tree (depth 8), timed, its accel grid
@@ -162,7 +174,8 @@ Phases, one line each with its wall time:
      --split_train) cut to one scene and TT_EPOCHS of 40 epochs, with the
      trained model's flags: rc 0, a results.txt line without error, finite
      PSNRs, each stage's wall-clock, the bbox-derived centre and radius;
- 27. LLFF NDC main path: an LLFF capture written by the port's writer
+ 27. LLFF NDC main path (with phase 28, run while the fleets of phases 21
+     and 26 run in their threads): an LLFF capture written by the port's writer
      (LLFF_VIEWS at LLFF_RES) and a config with llff in its path; the train
      CLI for 200 steps with the fused kernels; the extract CLI (--center
      "0 0 0" --radius 1.05, init_grid_depth LLFF_DEPTH), the optimize CLI
@@ -215,11 +228,14 @@ Phases, one line each with its wall time:
      times by each rank; then the train CLI under torch.distributed.run,
      two gloo ranks on cuda:0 for DP_STEPS steps (each rank's ms/step,
      all-reduce ms/step and launches; rank 0 alone writes; checkpoint_20
-     restores), then one rank with the default NCCL backend for 5 steps;
+     restores), then (beside phase 36's rank starts) one rank with the
+     default NCCL backend for 5 steps;
  34. sharded serving (run right after phase 6, on its index): the depth-7
      serving tree through TileRenderer(mesh=[cuda:0, cuda:0]) at 800x800,
-     N_SHARDED_POSES orbit poses bitwise the one-device frames, kernel #3
-     launched twice a frame, median ms/frame of both (u8 output); the eval
+     N_SHARDED_POSES orbit poses bitwise the one-device frames, phase 1
+     run once per device a frame on its own half of the 2,500 tiles, kernel
+     #3 launched twice a frame, each device's phase-1 ms (and the whole
+     frame's on one device), median ms/frame of both (u8 output); the eval
      CLI's --shard_devices 2 refused on a one-GPU host (phase 5 runs the
      eval CLI with --shard_devices 1);
  35. sharded inference over [cuda:0, cuda:0]: engine.render_image at
@@ -228,7 +244,21 @@ Phases, one line each with its wall time:
      one-device render at the slice size; the extract CLI with
      --mesh_shape 2 at phase 9's flags, bitwise phase 9's tree; the
      gen_mesh CLI at 300^3 with --mesh_shape 2: GEN_MESH_LAUNCHES launches
-     of kernel #1, the volume bitwise phase 31's.
+     of kernel #1, the volume bitwise phase 31's;
+ 36. multi-process inference: the eval (phase 3's blender scene, 4 views at
+     200x200), gen_video (2 views at 800x800) and gen_mesh (300^3, kernel
+     #1) CLIs each under torch.distributed.run with 2 gloo ranks on cuda:0,
+     side by side, against the same CLI in this process over [cuda:0,
+     cuda:0]: the same files, bitwise (the eval scalars without their
+     wall-clock); gen_mesh's kernel #1 launches per rank (19) and in the
+     one process (38);
+ 37. tensor-parallel training: the train CLI for TP_STEPS steps in this
+     process, then under torch.distributed.run with --mesh_shape 1,2 (2
+     gloo ranks on cuda:0, --use_pallas: kernels #1/#2 on gathered
+     weights): train losses within rtol 2e-5 and checkpoint params within
+     rtol 5e-5 / atol 1e-6 of the one process's, both kernels launched 3
+     times a step on each rank, each rank's ms/step and model-axis
+     collectives' ms/step.
 
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
@@ -274,6 +304,15 @@ N_ORBIT = 24
 # in the kernel, matmul in the plain version), so they may differ by a few
 # hundred f32 ulps; hit tests and precedence are computed identically.
 KERNEL_ATOL = 5e-5
+# The tile kernels run on the whole 800x800 frame (2,500 tiles); their plain
+# versions, at ~1.5-4.7 s a frame, run on a fixed subset of it: the tile
+# with the most pieces and every (tiles // 63)-th tile from 0. Tiles are
+# independent; the backward's gradient is a sum over tiles and linear in
+# the cotangent, so the whole-frame kernel run with the cotangent zero
+# outside the subset is held to the subset's plain gradient. The kernels
+# line's plain ms is one timed whole-frame run of #3 (phase 4) and of #4
+# (phase 11).
+PLAIN_SUBSET_TILES = 64
 # Fused trunk kernel vs plain version: the same bf16 rounding points, f32
 # sums in another order. An activation whose f32 pre-activation lies near
 # a bf16 rounding boundary rounds the other way and the difference
@@ -320,14 +359,17 @@ BWD_RERUN_RTOL = 2e-6
 # syn_sh16's extraction flags (octree/config/syn_sh16.json), cut from the
 # default init_grid_depth 8 to 6 (7 until the real-capture phases needed
 # the time; the fleet below extracts the same checkpoint at 8 with the
-# published flags), and its optimization flags with 2 epochs.
+# published flags), and its optimization flags with 1 epoch (2 until the
+# smoke was brought under half its time limit: one epoch already gains
+# 2.13 dB with the tile and the march optimizer, 18.36 -> 20.49 dB on
+# NVIDIA H100 80GB HBM3, 700 W).
 EXTRACT_DEPTH = 6
 EXTRACT_FLAGS = [
     "--autoscale", "--scale_alpha_thresh", "0.1", "--radius", "1.4", "--samples_per_cell", "256",
     "--no_early_stop", "--renderer_step_size", "1e-5", "--init_grid_depth", str(EXTRACT_DEPTH),
 ]
 OPT_FLAGS = [
-    "--num_epochs", "2", "--sgd", "--lr", "1e7", "--no_early_stop", "--renderer_step_size", "1e-5",
+    "--num_epochs", "1", "--sgd", "--lr", "1e7", "--no_early_stop", "--renderer_step_size", "1e-5",
     "--val_interval", "1",
 ]
 OPT_RES = 200
@@ -340,12 +382,14 @@ OPT_PROFILE_STEPS = 3
 OPT_STEP_KERNELS = {"backward_kernel": "tile_composite_bwd_kernel",
                     "forward_kernel": "tile_composite_kernel"}
 OPT_STEP_OPS = {"gather": "aten::index_select", "segment_sum": "aten::index_add_"}
-# Washing the DC colour coefficients turns the leaves grey; two SGD epochs
-# over 12 views must win back at least this much val PSNR. It is the
-# midpoint of this cell's two readings on the H100: +3.51 dB with the sound
-# gradient (18.36 -> 21.87 dB in each of three runs) and +0.00 dB with the
-# gradient's sign flipped (the control run below: the best snapshot stays
-# the initial tree).
+# Washing the DC colour coefficients turns the leaves grey; an SGD epoch
+# over 12 views must win back at least this much val PSNR. It was set as
+# the midpoint of this cell's two readings on the H100 over two epochs:
+# +3.51 dB with the sound gradient (18.36 -> 21.87 dB in each of three
+# runs) and +0.00 dB with the gradient's sign flipped (the control run
+# below: the best snapshot stays the initial tree); the first epoch alone
+# gains 2.13 dB (tile optimizer) and 2.13 dB (march), still above it (same
+# card: NVIDIA H100 80GB HBM3, 700 W).
 OPT_MIN_GAIN_DB = 1.75
 # Gather kernel vs plain (phase 14), at the probes' sizes: K x R indices
 # into a 32k-row (7.3 MB) table of N(0, 1) values, D = 56, each variant with
@@ -372,14 +416,17 @@ LPIPS_RTOL = 1e-4
 # them on this card), timed over this many steps; its device time by part
 # (the profiler ranges of octree/optimize.py) from one profiled chunk: a
 # profiler window over whole steps of ~10^5 small launches took ~130 s each.
-MARCH_OPT_STEPS = 3
+# 1 step after the warm-up (3 until the smoke was brought under half its
+# time limit: they read 5.11 / 4.99 / 5.26 s, within 6% of each other;
+# NVIDIA H100 80GB HBM3, 700 W).
+MARCH_OPT_STEPS = 1
 MARCH_STEP_RANGES = {"march": "pn_march", "shade": "pn_shade", "update": "pn_update"}
 # The SG head's slice (phases 19-23). SG25 trains with its config's batch
 # (1024) and samples (64 + 128); every later stage gets the model flags it
 # was trained with, as phase 9 does.
 SG_CONFIG = "nerf_sh/config/misc/sg"
 TRAINED_MODEL_FLAGS = ["--use_pallas", "--compute_dtype", "bfloat16"]
-FLEET_EPOCHS = 2  # of the published 80, as phase 13 is cut
+FLEET_EPOCHS = 1  # of the published 80, as phase 13 is cut
 # Two fleet workers on the one card: each stage is a process start, an
 # index or accel build and little device work, so the two tasks overlap
 # (134-159 s one after the other, 93 s side by side; NVIDIA H100 80GB
@@ -391,9 +438,10 @@ FLEET_GPUS = "0 0"
 # 2^20-point dispatches (python -m plenoctree_tpu_torch.bench_fleet, H100
 # 80GB HBM3, 700 W) the fleet took 216 s at 48x48 (4.9M / 5.3M leaves at
 # depth 8) and 282 s at 64x64 (7.1M / 7.7M), and compressing its trees
-# 147 s and 241 s. The rest of the smoke takes ~640 s on a slower host:
-# 64x64 would take it past 1200 s, and 48x48 may.
-FLEET_RES = 32
+# 147 s and 241 s. At 32x32 the two fleets side by side took 129-134 s of
+# a 915 s smoke run (H100 80GB HBM3, 700 W), hence 16x16, to keep the
+# smoke under half its 1200 s limit.
+FLEET_RES = 16
 # The decoded 16-bit SG25 tree's frame against the uncompressed tree's:
 # the compressor zeroes every voxel with sigma <= 2 (a thin fog over a
 # 200-step NeRF's volume) and quantizes each basis function to 2^16 fp16
@@ -407,7 +455,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 # Phases 24-27, the real-capture slice (cuts in PERF.md section 4):
 TT_CONFIG = "nerf_sh/config/tt"  # SH25, 8x256, 64 + 128 samples, batch 1024
 TT_TASKS = "octree/config/tt_sh25.json"
-TT_EPOCHS = 2  # of the published 40
+TT_EPOCHS = 1  # of the published 40
 TT_VIEWS = (10, 4)  # NSVF fixture train (0_) / test (1_) views, at FLEET_RES
 LLFF_RES = 64
 LLFF_VIEWS = 20  # llffhold 8: views 0, 8, 16 are the test split
@@ -421,7 +469,7 @@ PROJ_CONFIG = "nerf_sh/config/misc/proj"  # use_viewdirs, projected to SH degree
 PROJ_DEPTH = 5  # extraction's init_grid_depth, cut from 8
 JAX_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jax_ckpt")
 JAX_FIXTURE_FLAGS = ["--net_depth", "2", "--net_width", "16"]  # make_jax_checkpoints.py
-GEN_VIDEO_VIEWS = 4  # of the published 40
+GEN_VIDEO_VIEWS = 2  # of the published 40
 GEN_MESH_RESO = 300
 GEN_MESH_CHUNK = 720720
 GEN_MESH_LAUNCHES = -(-GEN_MESH_RESO ** 3 // GEN_MESH_CHUNK)  # 38
@@ -436,11 +484,36 @@ PROJ_CHUNK = 81920
 # torch.distributed.run (2 gloo ranks on cuda:0, then 1 NCCL rank), and
 # serving and inference over [cuda:0, cuda:0].
 DP_STEPS = 20
+TP_STEPS = 20
 NCCL_STEPS = 5
 DP_CLI_TIMEOUT = 300
 N_SHARDED_POSES = 4
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+
+
+def tile_subset(p2):
+    """The plain versions' tiles (PLAIN_SUBSET_TILES): the tile with the most
+    pieces and every (tiles // 63)-th one, as an index tensor."""
+    pieces = p2[0][:, 0, 0]
+    n = pieces.shape[0]
+    step = max(1, n // (PLAIN_SUBSET_TILES - 1))
+    picked = sorted(set(range(0, n, step)[: PLAIN_SUBSET_TILES - 1]) | {int(pieces.argmax())})
+    return torch.tensor(picked, device=pieces.device)
+
+
+def take_tiles(p2, idx):
+    return tuple(a[idx] for a in p2)
+
+
+def timed_once_ms(fn):
+    """One call's wall ms, the device synchronized on both sides (for the
+    plain versions' whole-frame times: seconds each, no warm-up needed)."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t1) * 1e3
 
 
 def phase(label, t0, **fields):
@@ -994,9 +1067,12 @@ def exact_inputs(opt, c2w):
     return ti, p2
 
 
-def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
-    """Phase 11 (and 22 on the SG25 tree): the tile backward kernel against
-    its plain version."""
+def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain", time_plain=True):
+    """Phase 11 (and 22 on the SG25 tree): the tile backward kernel on the
+    whole frame, with the cotangent zero outside the PLAIN_SUBSET_TILES
+    subset, against its plain version on that subset (the kernel's rerun
+    check and times with the whole cotangent); with time_plain, one timed
+    whole-frame run of the plain backward (the kernels line's)."""
     from plenoctree_tpu_torch.data.poses import orbit_pose
     from plenoctree_tpu_torch.kernels import tile_composite as K
     from plenoctree_tpu_torch.octree.tile_opt import TileOptimizer
@@ -1010,12 +1086,11 @@ def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
     out = fwd()
     # The exact-mode forward against its plain version first: the backward
     # check below feeds this `out` to both sides, so it cannot see a wrong one.
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out_ref = K.composite_tiles_reference(*p2, soa, **kw, stop_thresh=0.0, od_cap=1e30)
-    torch.cuda.synchronize()
-    fwd_plain_ms = (time.perf_counter() - t1) * 1e3
-    fwd_err = float((out - out_ref).abs().max())
+    sub = tile_subset(p2)
+    p2s = take_tiles(p2, sub)
+    out_ref, fwd_plain_ms = timed_once_ms(
+        lambda: K.composite_tiles_reference(*p2s, soa, **kw, stop_thresh=0.0, od_cap=1e30))
+    fwd_err = float((out[sub] - out_ref).abs().max())
     del out_ref
     if not (bool(torch.isfinite(out).all()) and fwd_err <= KERNEL_ATOL):
         raise RuntimeError(f"exact-mode tile kernel disagrees with the plain version: {fwd_err}")
@@ -1027,18 +1102,29 @@ def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
     quads, floats = K.bwd_atomic_counts(reset=True)  # one launch's float4 atomics
     again = K.composite_tiles_bwd(*p2, soa, out, g, **kw)
     torch.cuda.synchronize()
-    ref = K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw)
+    # Held to the plain version at the main path's shape: the kernel on the
+    # whole frame with the cotangent zero outside the subset. The backward
+    # is linear in g, so that gradient is the subset tiles' alone.
+    g_sub = torch.zeros_like(g)
+    g_sub[sub] = g[sub]
+    got_sub = K.composite_tiles_bwd(*p2, soa, out, g_sub, **kw)
+    del g_sub
+    ref, ms_p_sub = timed_once_ms(
+        lambda: K.composite_tiles_bwd_reference(*p2s, soa, out[sub], g[sub], **kw))
     sr = kw["sigma_row"]
     errs = {}
     for name, sl in (("sigma", slice(sr, sr + 1)), ("colour", slice(6, sr))):
-        top = float(ref[:, sl].abs().max())
-        errs[name] = (float((got[:, sl] - ref[:, sl]).abs().max()) / top,
-                      float((again[:, sl] - got[:, sl]).abs().max()) / top)
+        errs[name] = (float((got_sub[:, sl] - ref[:, sl]).abs().max())
+                      / float(ref[:, sl].abs().max()),
+                      float((again[:, sl] - got[:, sl]).abs().max())
+                      / float(got[:, sl].abs().max()))
     finite = bool(torch.isfinite(got).all())
     untouched = not bool(got[:, :6].any() or got[:, sr + 1 :].any())
-    max_abs_err = float((got - ref).abs().max())
+    max_abs_err = float((got_sub - ref).abs().max())
+    del got_sub, ref
     ms_k = cuda_ms(lambda: K.composite_tiles_bwd(*p2, soa, out, g, **kw), 5)
-    ms_p = cuda_ms(lambda: K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw), 1)
+    ms_p = (timed_once_ms(lambda: K.composite_tiles_bwd_reference(*p2, soa, out, g, **kw))[1]
+            if time_plain else None)
     ms_f = cuda_ms(fwd, 5)
     # The backward also reads `out` and `g` and writes the gradient soa's
     # non-padding rows (sigma_row + 1 per block).
@@ -1050,11 +1136,12 @@ def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
     phase(
         label, t0, index_build_s=round(t_index, 2), tiles=pieces.numel(),
         pieces_total=int(pieces.sum()), pieces_max=int(pieces.max()), ccap=opt.r.ccap,
+        plain_tiles=sub.numel(), plain_ms_on_subset=ms_p_sub,
         sigma_rel_err=errs["sigma"][0], colour_rel_err=errs["colour"][0], tol=BWD_RTOL,
         sigma_rerun_rel=errs["sigma"][1], colour_rerun_rel=errs["colour"][1],
         rerun_tol=BWD_RERUN_RTOL, max_abs_err=max_abs_err, kernel_ms=ms_k, plain_ms=ms_p,
         fwd_exact_max_abs_err=fwd_err, fwd_exact_tol=KERNEL_ATOL, fwd_exact_kernel_ms=ms_f,
-        fwd_exact_plain_ms=fwd_plain_ms, fwd_exact_bound_ms=fwd_bound[0], bound_ms=bound_ms,
+        fwd_exact_plain_ms_on_subset=fwd_plain_ms, fwd_exact_bound_ms=fwd_bound[0], bound_ms=bound_ms,
         bound_by=bound_by, soa_gib=soa.numel() * 4 / 2**30, bwd_float4_atomics=quads,
         bwd_atomic_nonzero_floats=floats,
     )
@@ -1064,7 +1151,7 @@ def tile_bwd_vs_plain(tree, label="tile bwd kernel vs plain"):
         raise RuntimeError(f"tile backward kernel disagrees with the plain version: {errs}")
     if not max(e[1] for e in errs.values()) <= BWD_RERUN_RTOL:
         raise RuntimeError(f"two tile backward kernel runs differ too much: {errs}")
-    del got, again, ref
+    del got, again
     return opt, ti, dict(max_abs_err=max_abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
                          bound_by=bound_by, fwd_exact_err=fwd_err)
 
@@ -1773,9 +1860,11 @@ def sg_tiles(scene_tree):
     p2 = ti(orbit_pose(0.0), idx["csr"], idx["base"], server.extra_data, idx["blk_bbox"])[0]
     soa, kw = idx["soa"], server._kernel_kw
     out = K.composite_tiles(*p2, soa, **kw)
-    serve_err = float((out - K.composite_tiles_reference(*p2, soa, **kw)).abs().max())
+    sub = tile_subset(p2)
+    p2s = take_tiles(p2, sub)
+    ref, serve_plain = timed_once_ms(lambda: K.composite_tiles_reference(*p2s, soa, **kw))
+    serve_err = float((out[sub] - ref).abs().max())
     serve_ms = cuda_ms(lambda: K.composite_tiles(*p2, soa, **kw), 10)
-    serve_plain = cuda_ms(lambda: K.composite_tiles_reference(*p2, soa, **kw), 1)
     serve_bound = bound_of(*tile_work(p2, soa, kw["sigma_row"], kw["quantum"], out.numel() * 4),
                            F32_FLOPS)
     lib = K.build()
@@ -1787,7 +1876,7 @@ def sg_tiles(scene_tree):
     phase("SG25 served frame", t0, format=repr(tree.data_format), leaves=tree.n_leaves,
           index_build_s=round(build_s, 2), frame_ms=frame_ms, launches=launches,
           kernel_max_abs_err=serve_err, tol=KERNEL_ATOL, kernel_ms=serve_ms,
-          plain_ms=serve_plain, bound_ms=serve_bound[0], bound_by=serve_bound[1],
+          plain_tiles=sub.numel(), plain_ms_on_subset=serve_plain, bound_ms=serve_bound[0], bound_by=serve_bound[1],
           soa_fields=soa.shape[1], staged_rows=rows, fwd_smem_bytes=smem_fwd,
           bwd_smem_bytes=smem_bwd, max_smem=K._MAX_SMEM, bwd_smem_spare=K._MAX_SMEM - smem_bwd,
           ccap=server.ccap)
@@ -1795,9 +1884,9 @@ def sg_tiles(scene_tree):
         raise RuntimeError("the SG25 served frame launched no tile kernel, or is bad")
     if not serve_err <= KERNEL_ATOL:
         raise RuntimeError(f"SG25 serving kernel disagrees: {serve_err} > {KERNEL_ATOL}")
-    del server, ti, idx, p2, soa, out
+    del server, ti, idx, p2, p2s, soa, out, ref
     torch.cuda.empty_cache()
-    tile_bwd_vs_plain(tree, "SG25 tile bwd kernel vs plain")
+    tile_bwd_vs_plain(tree, "SG25 tile bwd kernel vs plain", time_plain=False)
     torch.cuda.empty_cache()
 
 
@@ -1947,11 +2036,11 @@ def ndc_serving(tree, index, smi):
     p2, _, _, _ = ti(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])
     soa, kw = idx["soa"], r._kernel_kw
     out_k = tile_composite.composite_tiles(*p2, soa, **kw)
-    out_p = tile_composite.composite_tiles_reference(*p2, soa, **kw)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
+    sub = tile_subset(p2)
+    out_p, ms_plain = timed_once_ms(
+        lambda: tile_composite.composite_tiles_reference(*take_tiles(p2, sub), soa, **kw))
+    err = float((out_k[sub] - out_p).abs().max())
     ms_kernel = cuda_ms(lambda: tile_composite.composite_tiles(*p2, soa, **kw), 10)
-    ms_plain = cuda_ms(lambda: tile_composite.composite_tiles_reference(*p2, soa, **kw), 2)
     ms_inputs = cuda_ms(lambda: ti(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"]), 5)
     bound = bound_of(*tile_work(p2, soa, kw["sigma_row"], kw["quantum"], out_k.numel() * 4),
                      F32_FLOPS)
@@ -1977,7 +2066,8 @@ def ndc_serving(tree, index, smi):
         "NDC tile kernel vs plain", t0, tiles=p2[0].shape[0], pieces_max=int(n_pieces.max()),
         pieces_mean=float(n_pieces.float().mean()), masks_below_15_share=below15,
         origins_per_ray=bool((o - o[:, :1]).abs().max() > 1e-4), max_abs_err=err,
-        tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_ms=ms_plain, tile_inputs_ms=ms_inputs,
+        tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_tiles=sub.numel(),
+        plain_ms_on_subset=ms_plain, tile_inputs_ms=ms_inputs,
         bound_ms=bound[0], bound_by=bound[1], orbit_frames=N_NDC_ORBIT,
         orbit_median_ms=float(np.median(frame_ms)), orbit_best_ms=float(np.min(frame_ms)),
         orbit_first_ms=frame_ms[0], orbit_launches=tile_composite.launches, gpu=repr(smi),
@@ -2461,26 +2551,20 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _train_cli_flags(train_dir, steps):
+    """The smoke's torchrun training config: blender at batch 4096 on 32x32
+    synthetic views, printing every 5 steps, saving and rendering at the
+    last."""
+    return ["--config", "nerf_sh/config/blender", "--dataset", "synthetic",
+            "--synthetic_resolution", "32", "--train_dir", train_dir, *TRAINED_MODEL_FLAGS,
+            "--batch_size", str(BENCH_BATCH), "--image_batching", "--max_steps", str(steps),
+            "--print_every", "5", "--save_every", str(steps), "--render_every", str(steps)]
+
+
 def _torchrun(nproc, train_dir, extra, steps, log_name):
-    """The train CLI under torch.distributed.run with nproc ranks, the smoke's
-    blender config at batch 4096 on 32x32 synthetic views; returns (rc, its
-    output, seconds)."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
-           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
-           "-m", "plenoctree_tpu_torch.cli.train", "--config", "nerf_sh/config/blender",
-           "--dataset", "synthetic", "--synthetic_resolution", "32", "--train_dir", train_dir,
-           *TRAINED_MODEL_FLAGS, "--batch_size", str(BENCH_BATCH), "--image_batching",
-           "--max_steps", str(steps),
-           "--print_every", "5", "--save_every", str(steps), "--render_every", str(steps),
-           *extra]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
-    t0 = time.time()
-    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=DP_CLI_TIMEOUT)
-    out = res.stdout + res.stderr
-    with open(os.path.join(ROOT, "build", "smoke", log_name), "w") as f:
-        f.write(out)
-    return res.returncode, out, time.time() - t0
+    """The train CLI under torch.distributed.run with nproc ranks on
+    _train_cli_flags; returns (rc, its output, seconds)."""
+    return _torchrun_cli("train", _train_cli_flags(train_dir, steps) + extra, log_name, nproc)
 
 
 def _rank_lines(out):
@@ -2499,12 +2583,211 @@ def _rank_lines(out):
     return got
 
 
+def _torchrun_cli(module, argv, log_name, nproc=2):
+    """`python -m torch.distributed.run --nproc_per_node nproc -m
+    plenoctree_tpu_torch.cli.<module> argv`; returns (rc, output, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           "-m", f"plenoctree_tpu_torch.cli.{module}", *argv]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=DP_CLI_TIMEOUT)
+    out = res.stdout + res.stderr
+    with open(os.path.join(ROOT, "build", "smoke", log_name), "w") as f:
+        f.write(out)
+    return res.returncode, out, time.time() - t0
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _same_file(a, b):
+    """Bytes equal; metrics.jsonl records equal without their wall-clock."""
+    with open(a, "rb") as f, open(b, "rb") as g:
+        x, y = f.read(), g.read()
+    if a.endswith("metrics.jsonl"):
+        x, y = [[{k: v for k, v in json.loads(ln).items() if k != "ts"}
+                 for ln in z.decode().splitlines()] for z in (x, y)]
+    return x == y
+
+
+def multiprocess_inference(train_dir):
+    """Phase 36: the eval, gen_video and gen_mesh CLIs each under `python -m
+    torch.distributed.run --nproc_per_node 2` with gloo on cuda:0 (the three
+    launches side by side: each is two process starts and little device
+    work), against the same CLI run in this process over [cuda:0, cuda:0]
+    while they start (there each chunk splits into the same two slices a
+    rank renders, so every row is computed from the same rows): rank 0's
+    files bitwise the
+    one process's, and no other file; each gen_mesh rank's launches of
+    kernel #1 (GEN_MESH_LAUNCHES / 2: 19 dispatches of 2 x 720,720 points,
+    half on each rank) and the one process's (GEN_MESH_LAUNCHES)."""
+    import io
+    import re
+    import shutil
+
+    from plenoctree_tpu_torch.cli import eval as nerf_eval_cli
+    from plenoctree_tpu_torch.cli import gen_mesh, gen_video
+    from plenoctree_tpu_torch.kernels import fused_mlp
+
+    t0 = time.time()
+    root = os.path.join(ROOT, "build", "smoke", "multiprocess")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = sorted((n for n in os.listdir(train_dir) if re.fullmatch(r"checkpoint_\d+", n)),
+                  key=lambda n: int(n.split("_")[1]))[-1]
+    model = ["--config", "nerf_sh/config/blender", "--device", "cuda:0", *TRAINED_MODEL_FLAGS]
+    clis = {
+        "eval": (nerf_eval_cli, ["--dataset", "blender", "--data_dir",
+                                 os.path.join(ROOT, "build", "smoke", "blender"), "--eval_once",
+                                 "--chunk", "8000"]),
+        "gen_video": (gen_video, ["--dataset", "synthetic", "--num_views", "2",
+                                  "--chunk", "8000"]),
+        "gen_mesh": (gen_mesh, ["--reso", str(GEN_MESH_RESO), "--c1", "-2", "--c2", "2",
+                                "--iso", "6.0", "--point_chunk", str(GEN_MESH_CHUNK)]),
+    }
+    dirs, one_s, one_launches, runs = {}, {}, {}, {}
+    for name in clis:
+        dirs[name] = {}
+        for side in ("one", "ranks"):
+            d = os.path.join(root, name, side)
+            os.makedirs(d)
+            shutil.copy(os.path.join(train_dir, ckpt), d)
+            dirs[name][side] = d
+
+    def launch(name):
+        flags = clis[name][1]
+        runs[name] = _torchrun_cli(
+            name, model + flags + ["--dist_backend", "gloo", "--train_dir", dirs[name]["ranks"]],
+            f"multiprocess_{name}.log")
+
+    # The ranks start up while this process runs the references.
+    threads = [threading.Thread(target=launch, args=(n,)) for n in clis]
+    for th in threads:
+        th.start()
+    try:
+        for name, (module, flags) in clis.items():
+            fused_mlp.fwd_launches = 0
+            t1 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                module.main(model + flags + ["--train_dir", dirs[name]["one"]],
+                            devices=["cuda:0", "cuda:0"])
+            torch.cuda.synchronize()
+            one_s[name] = round(time.time() - t1, 2)
+            one_launches[name] = fused_mlp.fwd_launches
+    finally:
+        for th in threads:
+            th.join()
+    result = {}
+    for name in clis:
+        rc, out, secs = runs[name]
+        if rc != 0:
+            raise RuntimeError(f"{name} under torchrun failed ({rc}):\n{out[-3000:]}")
+        one, ranks = dirs[name]["one"], dirs[name]["ranks"]
+        made = [f for f in _files(one) if f != ckpt]
+        differ = [f for f in made if os.path.exists(os.path.join(ranks, f))
+                  and not _same_file(os.path.join(one, f), os.path.join(ranks, f))]
+        same = _files(ranks) == _files(one) and not differ
+        result[name] = dict(files=len(made), bitwise=same, torchrun_s=round(secs, 2),
+                            one_process_s=one_s[name])
+        if not (made and same):
+            texts = {f: [open(os.path.join(d, f)).read()[:400] for d in (one, ranks)]
+                     for f in differ if not f.endswith(".png")}
+            raise RuntimeError(f"{name} under 2 ranks wrote other files than one process: "
+                               f"{_files(ranks)} vs {_files(one)}; differing {differ}: {texts}")
+    lines = {int(r): int(n) for r, n in re.findall(
+        r"\* rank (\d+)/2: sigma grid [\d.]+ s, trunk launches fwd (\d+)", runs["gen_mesh"][1])}
+    per_rank = -(-GEN_MESH_RESO ** 3 // (2 * GEN_MESH_CHUNK))
+    phase("multi-process inference CLIs (torchrun, 2 gloo ranks on cuda:0)", t0,
+          clis=json.dumps(result), gen_mesh_launches_per_rank=json.dumps(lines),
+          gen_mesh_launches_one_process=one_launches["gen_mesh"], want_per_rank=per_rank)
+    if lines != {0: per_rank, 1: per_rank} or one_launches["gen_mesh"] != 2 * per_rank:
+        raise RuntimeError(f"gen_mesh launches: ranks {lines}, one process "
+                           f"{one_launches['gen_mesh']}, want {per_rank} per rank")
+
+
+def _tp_rank_lines(out):
+    """{rank: (steps, ms/step, model collectives ms/step, fwd, bwd)} from the
+    train CLI's closing lines under a model axis."""
+    import re
+
+    got = {}
+    pat = re.compile(r"\* rank (\d+)/\d+: (\d+) steps, ([\d.]+) ms/step.*model collectives "
+                     r"([\d.]+) ms/step, trunk launches fwd (\d+) bwd (\d+)")
+    for line in out.splitlines():
+        m = pat.search(line)
+        if m:
+            r, n, ms, col, f, b = m.groups()
+            got[int(r)] = (int(n), float(ms), float(col), int(f), int(b))
+    return got
+
+
+def tp_train_path():
+    """Phase 37: tensor parallelism over "model". The train CLI in this
+    process for TP_STEPS steps of the smoke's torchrun config (no group),
+    then under torch.distributed.run with --mesh_shape 1,2 (2 gloo ranks on
+    cuda:0, each Dense layer's columns split between them, the fused kernels
+    on gathered weights): the train losses at every print step within
+    tests/test_partition.py's rtol 2e-5 of the one process's, checkpoint
+    params within rtol 5e-5 / atol 1e-6, kernels #1 and #2 launched 3 times
+    a step on each rank; each rank's ms/step and its model-axis
+    collectives' ms/step."""
+    import io
+
+    from plenoctree_tpu_torch.cli import train as train_cli
+    from plenoctree_tpu_torch.models.params import params_from_flax
+    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+    from plenoctree_tpu_torch.utils.metrics_writer import read_scalars
+
+    t0 = time.time()
+    one_dir = tempfile.mkdtemp(prefix="tp_one_", dir=os.path.join(ROOT, "build", "smoke"))
+    tp_dir = tempfile.mkdtemp(prefix="tp_", dir=os.path.join(ROOT, "build", "smoke"))
+    flags = _train_cli_flags(one_dir, TP_STEPS) + ["--device", "cuda:0"]
+    launches0 = (fused_mlp.fwd_launches, fused_mlp.bwd_launches)
+    t1 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(flags)
+    one_s = time.time() - t1
+    one_launches = (fused_mlp.fwd_launches - launches0[0], fused_mlp.bwd_launches - launches0[1])
+    rc, out, secs = _torchrun(2, tp_dir, ["--device", "cuda:0", "--dist_backend", "gloo",
+                                          "--mesh_shape", "1,2"], TP_STEPS, "tp_train.log")
+    if rc != 0:
+        raise RuntimeError(f"torchrun --mesh_shape 1,2 failed with {rc}:\n{out[-3000:]}")
+    lines = _tp_rank_lines(out)
+    want = [v for _, v in read_scalars(one_dir, "train_loss")]
+    got = [v for _, v in read_scalars(tp_dir, "train_loss")]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if got else float("inf")
+    a = ckpt_utils.read_checkpoint(os.path.join(one_dir, f"checkpoint_{TP_STEPS}"))
+    b = ckpt_utils.read_checkpoint(os.path.join(tp_dir, f"checkpoint_{TP_STEPS}"))
+    pa, pb = params_from_flax(a["variables"]["params"]), params_from_flax(b["variables"]["params"])
+    param_excess = max(float(((pb[k] - pa[k]).abs() - (5e-5 * pa[k].abs() + 1e-6)).max())
+                       for k in pa)
+    params_bitwise = all(torch.equal(pa[k], pb[k]) for k in pa)
+    phase("tensor-parallel train CLI (torchrun --mesh_shape 1,2, 2 gloo ranks on cuda:0)", t0,
+          steps=TP_STEPS, seconds=round(secs, 2), one_process_s=round(one_s, 2),
+          ranks=json.dumps({r: dict(zip(("steps", "ms_per_step", "model_collectives_ms_per_step",
+                                         "fwd_launches", "bwd_launches"), v))
+                            for r, v in lines.items()}),
+          one_process_launches=one_launches, train_loss=json.dumps(got),
+          train_loss_one_process=json.dumps(want), loss_max_rel=loss_rel,
+          params_bitwise=params_bitwise, param_excess_over_tol=param_excess)
+    want_lines = (TP_STEPS, 3 * TP_STEPS, 3 * TP_STEPS)
+    if sorted(lines) != [0, 1] or any((v[0], v[3], v[4]) != want_lines for v in lines.values()):
+        raise RuntimeError(f"bad TP rank lines {lines}, want steps/fwd/bwd {want_lines}")
+    if len(got) != len(want) or not loss_rel <= 2e-5 or not param_excess <= 0.0:
+        raise RuntimeError(f"TP training off one process: losses {got} vs {want}, "
+                           f"params over tolerance by {param_excess}")
+
+
 def dp_train_path(train_dir):
     """Phase 33: data-parallel training. Two gloo ranks on cuda:0, each half
     of a 4096-ray batch, one step of the blender config at full width from
     phase 8's checkpoint_200 (its Adam moments) against a one-process step
     on the whole batch; then the train CLI under torch.distributed.run, two
-    gloo ranks on cuda:0 for DP_STEPS steps and one NCCL rank for 5."""
+    gloo ranks on cuda:0 for DP_STEPS steps (one NCCL rank: nccl_train_path)."""
     from plenoctree_tpu_torch.cli import train as train_cli
     from plenoctree_tpu_torch.data.rays import Rays
     from plenoctree_tpu_torch.models.nerf import get_model_state
@@ -2589,6 +2872,12 @@ def dp_train_path(train_dir):
     if restored.step != DP_STEPS or f"checkpoint_{DP_STEPS}" not in names:
         raise RuntimeError(f"checkpoint_{DP_STEPS} did not restore: {names}")
 
+
+def nccl_train_path():
+    """Phase 33c: the train CLI under torch.distributed.run with one rank and
+    the default NCCL backend for NCCL_STEPS steps (run beside phase 36's
+    rank starts: its ms/step carries their host load, its all-reduce ms is
+    CUDA events around NCCL's kernel)."""
     t0 = time.time()
     nccl_dir = tempfile.mkdtemp(prefix="nccl_", dir=os.path.join(ROOT, "build", "smoke"))
     rc, out, secs = _torchrun(1, nccl_dir, ["--device", "cuda"], NCCL_STEPS, "nccl_train.log")
@@ -2622,11 +2911,33 @@ def sharded_serving(tree, index, smi, tree_path):
     frames = [single.render_persp(c2w, RES, RES, focal) for c2w in poses]
     sharded.w1cap, sharded.ccap = single.w1cap, single.ccap
     tile_composite.launches = 0
-    equal = []
-    for c2w, want in zip(poses, frames):
-        equal.append(bool(np.array_equal(sharded.render_persp(c2w, RES, RES, focal), want)))
-    torch.cuda.synchronize()
+    ranges = []  # (device, tile range) of every phase-1 call the sharded frames make
+    real_inputs = TileRenderer.make_tile_inputs_fn
+
+    def spy(self, *a, tiles=None, device=None, **k):
+        ranges.append((str(device), tiles))
+        return real_inputs(self, *a, tiles=tiles, device=device, **k)
+
+    TileRenderer.make_tile_inputs_fn = spy
+    try:
+        equal = []
+        for c2w, want in zip(poses, frames):
+            equal.append(bool(np.array_equal(sharded.render_persp(c2w, RES, RES, focal), want)))
+        torch.cuda.synchronize()
+    finally:
+        TileRenderer.make_tile_inputs_fn = real_inputs
     launches = tile_composite.launches
+    # Phase 1 alone: each device's tile range, and the whole frame on one.
+    phase1_ms = []
+    for dev, rep, _, tiles in sharded.tile_ranges(RES, RES):
+        fn = sharded.make_tile_inputs_fn(RES, RES, focal, sharded.rcap, sharded.w1cap,
+                                         sharded.ccap, tiles=tiles, device=dev)
+        phase1_ms.append(cuda_ms(lambda: fn(poses[0], rep["csr"], rep["base"], rep["extra_data"],
+                                            rep["blk_bbox"]), 3))
+    idx = single.index
+    fn = single.make_tile_inputs_fn(RES, RES, focal, single.rcap, single.w1cap, single.ccap)
+    phase1_one = cuda_ms(lambda: fn(poses[0], idx["csr"], idx["base"], single.extra_data,
+                                    idx["blk_bbox"]), 3)
     ms = {}
     for name, r in (("single", single), ("sharded", sharded)):
         srv = TileRenderer(tree, output="u8", device="cuda", mesh=r.mesh, **kw)
@@ -2647,11 +2958,17 @@ def sharded_serving(tree, index, smi, tree_path):
                                str(EVAL_RES), "--fast_eval", "--shard_devices", "2"])
         except ValueError as e:
             refused = str(e)
+    half = -(-(RES // 16) ** 2 // 2)
+    want_ranges = [("cuda:0", (0, half)), ("cuda:0", (half, (RES // 16) ** 2))] * N_SHARDED_POSES
     phase("sharded serving", t0, devices="cuda:0,cuda:0", poses=N_SHARDED_POSES, res=RES,
-          bitwise_equal=equal, launches=launches, median_ms_sharded=ms["sharded"],
+          bitwise_equal=equal, launches=launches, phase1_tile_ranges=json.dumps(ranges[:2]),
+          phase1_calls=len(ranges), phase1_ms_per_device=phase1_ms,
+          phase1_ms_one_device=phase1_one, median_ms_sharded=ms["sharded"],
           median_ms_single=ms["single"], shard2_refused=repr(refused), gpu=repr(smi))
     if not all(equal):
         raise RuntimeError(f"sharded frames differ from the one-device frames: {equal}")
+    if ranges != want_ranges:
+        raise RuntimeError(f"phase 1 did not run once per device on its tile range: {ranges}")
     if launches != 2 * N_SHARDED_POSES:
         raise RuntimeError(f"kernel #3 launched {launches} times over {N_SHARDED_POSES} frames")
     if torch.cuda.device_count() == 1 and refused is None:
@@ -2766,16 +3083,19 @@ def main():
     smi = gpu_name_and_power()
     phase("device", t0, card=repr(kind), nvidia_smi=repr(smi), count=torch.cuda.device_count())
 
-    t0 = time.time()
-    build_all([tile_composite.build, fused_mlp.build, gather_sum.build, native_build])
-    phase(
-        "kernel build", t0, ptxas=repr(ptxas_summary(_build.build_logs, "tile_composite")),
-        trunk_ptxas=repr(ptxas_summary(_build.build_logs, "fused_mlp")),
-        gather_ptxas=repr(ptxas_summary(_build.build_logs, "gather_sum")),
-        native=repr(native.summary()), native_built_in_this_run=native.build_log is not None,
-        gxx=repr(subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
-                 .splitlines()[0]),
-    )
+    # The kernels build (one nvcc each, and g++) while the host bakes the
+    # model and renders the views; they are joined before the first launch.
+    build_t0, build_s, build_error = time.time(), [], []
+
+    def build():
+        try:
+            build_all([tile_composite.build, fused_mlp.build, gather_sum.build, native_build])
+        except BaseException as e:  # re-raised below, after the join
+            build_error.append(e)
+        build_s.append(time.time() - build_t0)
+
+    kernel_build = threading.Thread(target=build)
+    kernel_build.start()
 
     t0 = time.time()
     tree = build_scene_tree(TREE_DEPTH, BASIS_DIM, SH_NOISE, SEED)
@@ -2808,6 +3128,19 @@ def main():
     phase("synthetic views", t0, res=EVAL_RES, seconds_by_split=json.dumps(split_s))
     blender_round_trip()
 
+    kernel_build.join()
+    if build_error:
+        raise build_error[0]
+    phase(
+        "kernel build", time.time() - build_s[0], beside="model, synthetic views, blender scene",
+        ptxas=repr(ptxas_summary(_build.build_logs, "tile_composite")),
+        trunk_ptxas=repr(ptxas_summary(_build.build_logs, "fused_mlp")),
+        gather_ptxas=repr(ptxas_summary(_build.build_logs, "gather_sum")),
+        native=repr(native.summary()), native_built_in_this_run=native.build_log is not None,
+        gxx=repr(subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+                 .splitlines()[0]),
+    )
+
     t0 = time.time()
     renderer = TileRenderer(
         tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, device=dev
@@ -2826,13 +3159,14 @@ def main():
     soa = idx["soa"]
     kw = renderer._kernel_kw
     out_k = tile_composite.composite_tiles(*p2, soa, **kw)
-    out_p = tile_composite.composite_tiles_reference(*p2, soa, **kw)
+    sub = tile_subset(p2)
+    out_p = tile_composite.composite_tiles_reference(*take_tiles(p2, sub), soa, **kw)
     torch.cuda.synchronize()
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
         raise RuntimeError("non-finite tile compositing output")
-    max_abs_err = float((out_k - out_p).abs().max())
+    max_abs_err = float((out_k[sub] - out_p).abs().max())
     ms_kernel = cuda_ms(lambda: tile_composite.composite_tiles(*p2, soa, **kw), 10)
-    ms_plain = cuda_ms(lambda: tile_composite.composite_tiles_reference(*p2, soa, **kw), 2)
+    _, ms_plain = timed_once_ms(lambda: tile_composite.composite_tiles_reference(*p2, soa, **kw))
     ms_inputs = cuda_ms(
         lambda: tile_inputs(c2w, idx["csr"], idx["base"], renderer.extra_data, idx["blk_bbox"]), 5
     )
@@ -2842,7 +3176,7 @@ def main():
     phase(
         "kernel vs plain", t0, tiles=p2[0].shape[0], pieces_max=int(n_pieces.max()),
         pieces_mean=float(n_pieces.float().mean()), index_build_s=round(t_index, 2),
-        max_abs_err=max_abs_err, tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_ms=ms_plain,
+        plain_tiles=sub.numel(), max_abs_err=max_abs_err, tol=KERNEL_ATOL, kernel_ms=ms_kernel, plain_ms=ms_plain,
         tile_inputs_ms=ms_inputs, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
     )
     if not max_abs_err <= KERNEL_ATOL:
@@ -2924,7 +3258,7 @@ def main():
         tt_args = tt_train_main_path()
     torch.cuda.empty_cache()
     # The two fleets are host-bound processes: the T&T fleet runs beside
-    # the synthetic one (its phase line comes from its thread).
+    # the synthetic one (their phase lines come from their threads).
     tt_error = []
 
     def tt_fleet():
@@ -2933,21 +3267,33 @@ def main():
         except BaseException as e:  # re-raised below, after the join
             tt_error.append(e)
 
-    tt_thread = threading.Thread(target=tt_fleet)
-    tt_thread.start()
+    fleet_trees = {}
+
+    def syn_fleet():
+        try:
+            fleet_trees.update(fleet_main_path(train_dir, sg_dir))
+        except BaseException as e:  # re-raised below, after the join
+            tt_error.append(e)
+
+    fleets = [threading.Thread(target=tt_fleet), threading.Thread(target=syn_fleet)]
+    for th in fleets:
+        th.start()
+    # The LLFF and view-conditioned paths run here meanwhile: their phases
+    # report quality and seconds, not device times, and the fleets' stages
+    # are process starts and host work with little on the card.
     try:
-        fleet_trees = fleet_main_path(train_dir, sg_dir)
+        with kernel_switches(False):
+            llff_main_path()
+            viewdirs_main_path()
     finally:
-        tt_thread.join()
+        for th in fleets:
+            th.join()
     if tt_error:
         raise tt_error[0]
+    torch.cuda.empty_cache()
     fleet_tree_march(fleet_trees["SH16"])
     sg_tiles(tree)
     compression_main_path(fleet_trees)
-    torch.cuda.empty_cache()
-    with kernel_switches(False):
-        llff_main_path()
-        viewdirs_main_path()
     torch.cuda.empty_cache()
     jax_checkpoints_on_card()
     with kernel_switches(False):
@@ -2956,6 +3302,23 @@ def main():
         train_extras_path()
         dp_train_path(train_dir)
         sharded_inference(train_dir, mesh_res.pop("volume"))
+        nccl_error = []
+
+        def nccl():
+            try:
+                nccl_train_path()
+            except BaseException as e:  # re-raised below, after the join
+                nccl_error.append(e)
+
+        nccl_thread = threading.Thread(target=nccl)
+        nccl_thread.start()
+        try:
+            multiprocess_inference(train_dir)
+        finally:
+            nccl_thread.join()
+        if nccl_error:
+            raise nccl_error[0]
+        tp_train_path()
     phase("total", start)
 
     bench_rows = trunk["default", TRUNK_ROWS]

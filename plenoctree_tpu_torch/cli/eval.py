@@ -14,12 +14,23 @@ computes no metrics. LLFF disparities are min-max normalised per image.
 Without --eval_once it polls: every 10 s it looks for a newer checkpoint,
 and it stops after evaluating one at --max_steps.
 
+Under `python -m torch.distributed.run` (or in a process group its caller
+made) every rank renders its share of each chunk on its own device
+(cuda:LOCAL_RANK for --device cuda, or the one device named, e.g.
+`--device cuda:0 --dist_backend gloo`), the shares are gathered in rank
+order (engine.render_image), and rank 0 alone computes the metrics and
+writes anything, as the JAX CLI's process 0; --mesh_shape must then cover
+the ranks' devices together.
+
 Usage:
   python -m plenoctree_tpu_torch.cli.eval --config nerf_sh/config/blender \\
       --data_dir <scene dir> --train_dir <ckpt dir> --chunk 4096
+  python -m torch.distributed.run --nproc_per_node 8 -m plenoctree_tpu_torch.cli.eval \\
+      <the same flags>                    # one rank per GPU
 """
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -48,30 +59,36 @@ def build_parser():
         "--device", default="cuda",
         help="torch device to render on; 'cuda' raises when there is no GPU",
     )
+    parallel.mesh.add_dist_backend_flag(parser)
     config_lib.add_flags(parser)
     return parser
 
 
 def main(argv=None, devices=None):
     """Returns (average PSNR, average SSIM) of the last checkpoint evaluated
-    (NaN with --render_path, which computes no metrics). `devices`
-    overrides the device list the renders are split over."""
+    (NaN with --render_path, which computes no metrics, and on ranks other
+    than 0). `devices` overrides the device list the renders are split
+    over."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
         raise ValueError("train_dir must be set. None set now.")
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
-    devices = parallel.cli_devices(cfg, device, devices)
-    device = devices[0]
+    with parallel.mesh.cli_group(cfg.dist_backend, device) as (rank, _, device):
+        return _evaluate(cfg, parallel.cli_devices(cfg, device, devices), rank == 0)
 
+
+def _evaluate(cfg, devices, lead):
+    device = devices[0]
     dataset = get_dataset("test", cfg)
     out_dir = os.path.join(cfg.train_dir, "path_renders" if cfg.render_path else "test_preds")
-    if cfg.save_output:
+    if cfg.save_output and lead:
         os.makedirs(out_dir, exist_ok=True)
     last_step = 0
     avg_psnr = avg_ssim = float("nan")
-    with MetricsWriter(os.path.join(cfg.train_dir, "eval")) as writer:
+    eval_dir = os.path.join(cfg.train_dir, "eval")
+    with (MetricsWriter(eval_dir) if lead else contextlib.nullcontext()) as writer:
         while True:
             model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
             step = int(state.step)
@@ -84,17 +101,22 @@ def main(argv=None, devices=None):
                 case = next(dataset)
                 if idx % cfg.approx_eval_skip != 0:
                     continue
-                print(f"Evaluating {idx + 1}/{dataset.size}")
+                if lead:
+                    print(f"Evaluating {idx + 1}/{dataset.size}")
                 pred_color, pred_disp, _ = engine.render_image(
                     model, case["rays"], chunk=cfg.chunk, device=device,
                     normalize_disp=cfg.dataset == "llff", devices=devices,
                 )
+                if not lead:
+                    continue
                 if not cfg.render_path:
                     gt = case["pixels"]
                     psnr = float(compute_psnr(float(np.mean((pred_color - gt) ** 2))))
+                    # On the render device, as the JAX CLI computes it: the CPU's
+                    # convolutions sum in an order that follows its thread count.
                     ssim = float(compute_ssim(
-                        torch.from_numpy(pred_color), torch.from_numpy(np.asarray(gt, np.float32)),
-                        1.0,
+                        torch.from_numpy(pred_color).to(device),
+                        torch.from_numpy(np.asarray(gt, np.float32)).to(device), 1.0,
                     ))
                     print(f"  PSNR = {psnr:.4f}, SSIM = {ssim:.4f}")
                     psnr_values.append(psnr)
@@ -104,7 +126,7 @@ def main(argv=None, devices=None):
                     io_utils.save_img(
                         pred_disp[..., 0], os.path.join(out_dir, f"disp_{idx:03d}.png")
                     )
-            if not cfg.render_path:
+            if lead and not cfg.render_path:
                 avg_psnr = float(np.mean(psnr_values))
                 avg_ssim = float(np.mean(ssim_values))
                 writer.scalar("eval_psnr", avg_psnr, step)

@@ -19,6 +19,14 @@ volume gathered on the first). A use_viewdirs model is queried at zero
 view directions, as in extraction. Then relu, the marching on the device,
 and the OBJ.
 
+Under `python -m torch.distributed.run` (or in a process group its caller
+made) each dispatch holds --point_chunk points per device of every rank:
+each rank evaluates its contiguous share on its own device (the fused
+kernel with --use_pallas on every rank), the shares are gathered in rank
+order, every rank marches the volume, and rank 0 alone writes mesh.obj, as
+the JAX CLI's process 0. Each rank ends with one line: its sigma grid's
+seconds and, with the fused kernel, its launches.
+
 Usage:
   python -m plenoctree_tpu_torch.cli.gen_mesh --config nerf_sh/config/blender \\
       --train_dir <ckpt dir> [--reso "300 300 300" --iso 6.0] --device cuda
@@ -53,6 +61,7 @@ def build_parser():
                         help="Point batch size for evaluation (--chunk ignored)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to evaluate on; 'cuda' raises when there is no GPU")
+    parallel.mesh.add_dist_backend_flag(parser)
     config_lib.add_flags(parser, extra=("point_chunk",))
     return parser
 
@@ -75,9 +84,10 @@ def device_grid(axes, device):
 
 def sigma_grid(points_fn, grid, reso, chunk, devices=None):
     """relu(raw sigma) at the grid's points, chunk points per device a
-    dispatch (split over `devices` where given), as an [X, Y, Z] f32 volume
-    on the grid's device."""
-    per_call = chunk * (len(devices) if devices else 1)
+    dispatch (split over `devices` where given, and over the ranks of the
+    default process group), as an [X, Y, Z] f32 volume on the grid's
+    device."""
+    per_call = chunk * (len(devices) if devices else 1) * parallel.mesh.world()[1]
     sigma = engine.eval_points(lambda p: points_fn(p)[1][:, 0], grid, per_call,
                                devices).to(grid.device)
     sigma = torch.maximum(sigma, torch.zeros((), device=grid.device))
@@ -86,7 +96,8 @@ def sigma_grid(points_fn, grid, reso, chunk, devices=None):
 
 def main(argv=None, devices=None):
     """Returns {"path", "vertices", "triangles", "sigma_max", "seconds" (per
-    step: grid, sigma, marching, obj), "volume" (the sigma grid)}.
+    step: grid, sigma, marching, obj; obj on rank 0 only), "volume" (the
+    sigma grid)}.
     `devices` overrides the device list the dispatches are split over."""
     cfg = config_lib.parse_flags(build_parser(), argv)
     if cfg.train_dir is None:
@@ -94,19 +105,30 @@ def main(argv=None, devices=None):
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
-    devices = parallel.cli_devices(cfg, device, devices)
+    with parallel.mesh.cli_group(cfg.dist_backend, device) as (rank, world, device):
+        return _mesh(cfg, parallel.cli_devices(cfg, device, devices), rank, world)
+
+
+def _mesh(cfg, devices, rank, world):
+    lead = rank == 0
     device = devices[0]
+    kernels = cfg.use_pallas and device.type == "cuda"
+    if kernels:
+        from plenoctree_tpu_torch.kernels import fused_mlp
+
+        launches0 = fused_mlp.fwd_launches
     if len(devices) == 1:
         devices = None
+    say = print if lead else (lambda *a, **k: None)  # the JAX CLI's h0print
 
     reso = _triple(cfg.reso, int)
     c1 = np.asarray(_triple(cfg.c1, float), np.float32)
     c2 = np.asarray(_triple(cfg.c2, float), np.float32)
 
-    print("* Creating model")
+    say("* Creating model")
     model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
     model.eval()
-    print("* Eval reso", cfg.reso, "coarse?", cfg.coarse, "step", int(state.step))
+    say("* Eval reso", cfg.reso, "coarse?", cfg.coarse, "step", int(state.step))
     points_fn = make_points_fn(model, device, coarse=cfg.coarse)
 
     seconds = {}
@@ -120,19 +142,24 @@ def main(argv=None, devices=None):
     sigma_max = float(sigma.max())
     seconds["sigma"] = time.perf_counter() - t0
 
-    print("* Marching tetrahedra at iso", cfg.iso)
+    say("* Marching tetrahedra at iso", cfg.iso)
     t0 = time.perf_counter()
     verts, tris = marching_tetrahedra(sigma, cfg.iso)
     verts, tris = verts.cpu().numpy(), tris.cpu().numpy()
     verts = c1 + verts / (np.asarray(reso) - 1) * (c2 - c1)
     seconds["marching"] = time.perf_counter() - t0
-    print(f"  {len(verts)} vertices, {len(tris)} triangles")
+    say(f"  {len(verts)} vertices, {len(tris)} triangles")
 
+    line = f"* rank {rank}/{world}: sigma grid {seconds['sigma']:.3f} s"
+    if kernels:
+        line += f", trunk launches fwd {fused_mlp.fwd_launches - launches0}"
+    print(line, flush=True)
     mesh_path = os.path.join(cfg.train_dir, "mesh.obj")
-    print(" Saving to", mesh_path)
-    t0 = time.perf_counter()
-    save_obj(verts, tris, mesh_path)
-    seconds["obj"] = time.perf_counter() - t0
+    if lead:
+        say(" Saving to", mesh_path)
+        t0 = time.perf_counter()
+        save_obj(verts, tris, mesh_path)
+        seconds["obj"] = time.perf_counter() - t0
     return {"path": mesh_path, "vertices": len(verts), "triangles": len(tris),
             "sigma_max": sigma_max, "seconds": seconds, "volume": sigma}
 

@@ -13,6 +13,11 @@ through the port's PNG writer. The mp4 is written only where imageio can
 write one; otherwise the CLI prints the JAX CLI's "mp4 write unavailable"
 line and keeps the frames, which are the product.
 
+Under `python -m torch.distributed.run` (or in a process group its caller
+made) every rank renders its share of each chunk on its own device and
+rank 0 alone writes the poses, the frames and the video, as the JAX CLI's
+process 0 (see cli/eval.py).
+
 Usage:
   python -m plenoctree_tpu_torch.cli.gen_video --config nerf_sh/config/blender \\
       --train_dir <ckpt dir> [--elevation -30 --num_views 40] --device cuda
@@ -55,6 +60,7 @@ def build_parser():
                         help="Specify to write poses to given file (4N x 4)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on; 'cuda' raises when there is no GPU")
+    parallel.mesh.add_dist_backend_flag(parser)
     config_lib.add_flags(parser, extra=("radius",))
     return parser
 
@@ -92,50 +98,58 @@ def main(argv=None, devices=None):
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
-    devices = parallel.cli_devices(cfg, device, devices)
-    device = devices[0]
+    with parallel.mesh.cli_group(cfg.dist_backend, device) as (rank, _, device):
+        return _render_video(cfg, parallel.cli_devices(cfg, device, devices), rank == 0)
 
-    print("* Generating poses")
+
+def _render_video(cfg, devices, lead):
+    device = devices[0]
+    say = print if lead else (lambda *a, **k: None)  # the JAX CLI's h0print
+    say("* Generating poses")
     render_poses = orbit_poses(cfg.num_views, cfg.elevation, cfg.radius, cfg.up_axis)
-    if cfg.write_poses:
+    if cfg.write_poses and lead:
         np.savetxt(cfg.write_poses, render_poses.reshape(-1, 4))
-        print("Saved poses to", cfg.write_poses)
+        say("Saved poses to", cfg.write_poses)
 
     focal = 0.5 * cfg.width / np.tan(0.5 * cfg.camera_angle_x)
     if cfg.intrin is not None:
-        print("Load focal length from intrin file")
+        say("Load focal length from intrin file")
         K = np.loadtxt(cfg.intrin)
         focal = (K[0, 0] + K[1, 1]) * 0.5
 
-    print("* Generating rays")
+    say("* Generating rays")
     rays = generate_rays(cfg.width, cfg.height, focal, render_poses)
 
-    print("* Creating model")
+    say("* Creating model")
     model, _ = get_model_state(cfg, seed=SEED, restore=True, device=device)
     model.eval()
 
     vid_name = "e{:03}".format(int(-cfg.elevation * 10))
     video_dir = os.path.join(cfg.train_dir, "video", vid_name)
     frames_dir = os.path.join(video_dir, "frames")
-    print(" Saving to", video_dir)
-    os.makedirs(frames_dir, exist_ok=True)
+    say(" Saving to", video_dir)
+    if lead:
+        os.makedirs(frames_dir, exist_ok=True)
 
     frames = []
     for i in range(cfg.num_views):
-        print(f"** View {i + 1}/{cfg.num_views}")
+        say(f"** View {i + 1}/{cfg.num_views}")
         pred_color, _, _ = engine.render_image(
             model, namedtuple_map(lambda x: x[i], rays), chunk=cfg.chunk, device=device,
             normalize_disp=cfg.dataset == "llff", devices=devices,
         )
-        io_utils.save_img(pred_color, os.path.join(frames_dir, f"{i:04}.png"))
-        frames.append(pred_color)
+        if lead:
+            io_utils.save_img(pred_color, os.path.join(frames_dir, f"{i:04}.png"))
+            frames.append(pred_color)
+    if not lead:
+        return video_dir
 
     vid_path = os.path.join(video_dir, "video.mp4")
-    print("* Writing video", vid_path)
+    say("* Writing video", vid_path)
     err = write_mp4(vid_path, np.stack(frames), cfg.fps)
     if err is not None:
-        print(f"  mp4 write unavailable ({err}); frames kept in {frames_dir}")
-    print("* Done")
+        say(f"  mp4 write unavailable ({err}); frames kept in {frames_dir}")
+    say("* Done")
     return video_dir
 
 

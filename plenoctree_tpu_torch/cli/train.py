@@ -22,12 +22,19 @@ broadcast, the gradients averaged by one all-reduce a step (engine.py).
 Stratified and fine samples are drawn per rank (the JAX CLI's
 fold_in(rng, process_index)), the sparsity points alike on every rank.
 Rank 0 alone writes metrics, TensorBoard events, timings.txt, checkpoints,
-renders and the profiler trace. --mesh_shape, where given, must name the
-world size as its data axis. Each rank ends with one line: its steps, its
-ms/step after the first step (renders and saves left out; on ranks other
-than 0 the wait for rank 0's renders and saves falls into the next
-all-reduce), the all-reduce's median ms/step and its trunk-kernel
-launches.
+renders and the profiler trace. --mesh_shape D,M (the JAX CLI's data and
+model axes) lays the world out row-major over both: the batch splits over
+the D data indices, and each model group of M ranks shards the Dense
+layers by columns (parallel/partition.py: ranks of one data index take
+the same rows and draws). Checkpoints keep the one-process layout: every
+rank gathers the columns, rank 0 writes, and renders through a whole copy
+of the model. In one process (no group) a model axis is replicated, as the
+JAX CLI replicates its state over the mesh; --mesh_shape must then name a
+data axis of 1. Each rank ends with one line: its steps, its ms/step after
+the first step (renders and saves left out; on ranks other than 0 the
+wait for rank 0's renders and saves falls into the next all-reduce), the
+all-reduce's median ms/step, the model axis's collectives' ms/step and
+its trunk-kernel launches.
 
 Usage:
   python -m plenoctree_tpu_torch.cli.train --config nerf_sh/config/blender \\
@@ -35,10 +42,13 @@ Usage:
       --batch_size 4096 --image_batching --device cuda
   python -m torch.distributed.run --nproc_per_node 8 -m plenoctree_tpu_torch.cli.train \\
       <the same flags>                    # one rank per GPU, NCCL
+  python -m torch.distributed.run --nproc_per_node 8 -m plenoctree_tpu_torch.cli.train \\
+      <the same flags> --mesh_shape 4,2   # 4-way data x 2-way tensor parallel
 """
 
 import argparse
 import contextlib
+import copy
 import gc
 import os
 import time
@@ -71,11 +81,7 @@ def build_parser():
         help="torch device to train on; 'cuda' raises when there is no GPU (under "
              "torch.distributed.run: cuda:LOCAL_RANK)",
     )
-    parser.add_argument(
-        "--dist_backend", default="", choices=["", "nccl", "gloo"],
-        help="process-group backend under torch.distributed.run (empty: nccl on CUDA "
-             "devices, gloo on the CPU; several ranks on one GPU need gloo)",
-    )
+    parallel.mesh.add_dist_backend_flag(parser)
     config_lib.add_flags(parser)
     return parser
 
@@ -142,17 +148,31 @@ def main(argv=None):
             torch.distributed.destroy_process_group()
 
 
+def _layout(cfg, world):
+    """The ranks over (data, model): init_groups under a group; in one
+    process a model axis is replicated, so the data axis must be 1."""
+    shape = [int(x) for x in str(cfg.mesh_shape or "").split(",") if x.strip()]
+    try:
+        if parallel.mesh.default_group() is not None:
+            return parallel.mesh.init_groups(cfg.mesh_shape)
+        if len(shape) == 2 and shape[0] in (1, -1) and shape[1] >= 1:
+            if shape[1] > 1:
+                print(f"* --mesh_shape {cfg.mesh_shape} in one process: the model axis "
+                      "is replicated")
+            return parallel.mesh.layout()
+        parallel.mesh.parse_mesh_shape(cfg.mesh_shape, world)
+        return parallel.mesh.layout()
+    except ValueError as e:
+        raise ValueError(
+            f"{e}: the train CLI runs one device per rank ({world} here); launch "
+            "one process per device with python -m torch.distributed.run"
+        ) from None
+
+
 def _train(cfg, rank, world, device):
-    if cfg.mesh_shape:
-        try:
-            parallel.mesh.parse_mesh_shape(cfg.mesh_shape, world)
-        except ValueError as e:
-            raise ValueError(
-                f"{e}: the train CLI runs one device per rank ({world} here); launch "
-                "one process per device with python -m torch.distributed.run"
-            ) from None
+    lay = _layout(cfg, world)
     lead = rank == 0
-    np.random.seed(20201473 + rank)
+    np.random.seed(20201473 + lay.data_index)
     render_dir = os.path.join(cfg.train_dir, "render")
     if lead:
         os.makedirs(render_dir, exist_ok=True)
@@ -167,12 +187,19 @@ def _train(cfg, rank, world, device):
     say("* Load model")
     model, state = get_model_state(cfg, seed=SEED, restore=True, device=device)
     group = parallel.mesh.default_group()
+    tp = render_model = None
     if group is not None:
         parallel.broadcast_params_(model, 0, group)
         print(f"* Rank {rank} of {world} on {device} "
               f"({torch.distributed.get_backend(group)})", flush=True)
+        if lay.model > 1:
+            print(f"* Rank {rank}: data {lay.data_index}/{lay.data}, "
+                  f"model {lay.model_index}/{lay.model}", flush=True)
+            render_model = copy.deepcopy(model) if lead else None
+            state = parallel.partition.shard_train_state(state, model, lay)
+            tp = model.tp
     init_step = state.step + 1
-    train_step = engine.make_train_step(model, cfg, group)
+    train_step = engine.make_train_step(model, cfg, lay.data_group)
     lr_fn = schedule_from_config(cfg)
     gen = torch.Generator(device=device)
     sp_gen = torch.Generator(device=device)
@@ -191,7 +218,7 @@ def _train(cfg, rank, world, device):
         for step in range(init_step, cfg.max_steps + 1):
             # Resume-stable, like fold_in(rng, step); per rank like the JAX
             # CLI's fold_in(rng, process_index), the sparsity points alike.
-            gen.manual_seed(step_seed(SEED, step, rank))
+            gen.manual_seed(step_seed(SEED, step, lay.data_index))
             sp_gen.manual_seed(step_seed(SP_SEED, step))
             if lead:
                 profiler.before(step)
@@ -202,6 +229,11 @@ def _train(cfg, rank, world, device):
                 t_train = time.time()
             if step % cfg.gc_every == 0:
                 gc.collect()
+            rendering = cfg.render_every > 0 and step % cfg.render_every == 0
+            # Under tensor parallelism every rank gathers the columns that
+            # rank 0 saves and renders with.
+            whole = (parallel.partition.gather_train_state(state, tp)
+                     if tp is not None and (step % cfg.save_every == 0 or rendering) else state)
             if not lead:
                 continue
             profiler.after(step)
@@ -239,16 +271,21 @@ def _train(cfg, rank, world, device):
             t_aside_start = time.time()
             if step % cfg.save_every == 0:
                 print("* Saving")
-                ckpt_utils.save_checkpoint(cfg.train_dir, state, step)
+                ckpt_utils.save_checkpoint(cfg.train_dir, whole, step)
 
-            if cfg.render_every > 0 and step % cfg.render_every == 0:
+            if rendering:
                 print("\n* Rendering")
                 t_eval_start = time.time()
                 test_case = next(test_dataset)
+                if render_model is not None:
+                    with torch.no_grad():
+                        for k, p in render_model.named_parameters():
+                            p.copy_(whole.params[k])
                 pred_color, pred_disp, pred_acc = engine.render_image(
-                    model, test_case["rays"], chunk=cfg.chunk, device=device,
+                    model if render_model is None else render_model, test_case["rays"],
+                    chunk=cfg.chunk, device=device,
                     randomized=cfg.randomized, generator=gen,
-                    normalize_disp=cfg.dataset == "llff",
+                    normalize_disp=cfg.dataset == "llff", group=None,
                 )
                 gt = test_case["pixels"]
                 psnr = float(compute_psnr(float(np.mean((pred_color - gt) ** 2))))
@@ -277,16 +314,20 @@ def _train(cfg, rank, world, device):
             profiler.after(cfg.max_steps, last=True)
         gc.enable()
     line = f"* rank {rank}/{world}: {n_steps} steps, {ms_step:.3f} ms/step"
-    if group is not None:
+    if lay.data_group is not None:
         line += f", all-reduce {train_step.all_reduce_ms() or 0.0:.3f} ms/step"
+    if tp is not None:
+        line += f", model collectives {train_step.model_collectives_ms() or 0.0:.3f} ms/step"
     if cfg.use_pallas and device.type == "cuda":
         line += (f", trunk launches fwd {fused_mlp.fwd_launches - launches0[0]}"
                  f" bwd {fused_mlp.bwd_launches - launches0[1]}")
     print(line, flush=True)
+    last = cfg.max_steps % cfg.save_every != 0
+    whole = parallel.partition.gather_train_state(state, tp) if tp is not None and last else state
     if lead:
         timings.close()
-        if cfg.max_steps % cfg.save_every != 0:
-            ckpt_utils.save_checkpoint(cfg.train_dir, state, cfg.max_steps)
+        if last:
+            ckpt_utils.save_checkpoint(cfg.train_dir, whole, cfg.max_steps)
     return model, state
 
 

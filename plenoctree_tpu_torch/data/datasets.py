@@ -3,8 +3,9 @@ and Synthetic.
 
 Port of plenoctree_tpu/data/datasets.py. Batches leave this module as host
 numpy; the renderer moves what it needs to its device. Under a process
-group each rank's train split serves batch_size // world rays (the JAX
-package's per-host split), from a sampler seeded with the rank. Differences
+group each rank's train split serves batch_size // data rays (the JAX
+package's per-host split; `data` is the world size without tensor
+parallelism), from a sampler seeded with the rank's data index. Differences
 from the JAX package: no prefetch thread
 (batches are built on demand), a seeded batch sampler, and images are read
 with the port's own PNG decoder (`utils/png.py`) and downsampled with a
@@ -57,15 +58,17 @@ class Dataset:
             self._test_init(args)
         else:
             raise ValueError(f"split must be train/val/test, got {split}")
-        rank, world = mesh_lib.world()
-        if split == "train" and args.batch_size % world:
+        share, shares = mesh_lib.data_world()
+        if split == "train" and args.batch_size % shares:
             raise ValueError(
-                f"--batch_size {args.batch_size} does not divide over {world} ranks"
+                f"--batch_size {args.batch_size} does not divide over {shares} ranks"
             )
-        self.batch_size = args.batch_size // world
+        self.batch_size = args.batch_size // shares
         self.image_batching = args.image_batching
         self.render_path = args.render_path
-        self._rng = np.random.default_rng(rank)  # training batch sampler, one stream per rank
+        # The training batch sampler: one stream per share of the batch (the
+        # ranks along "model" take the same rows).
+        self._rng = np.random.default_rng(share)
 
     def __iter__(self):
         return self

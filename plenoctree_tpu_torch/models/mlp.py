@@ -31,17 +31,27 @@ from plenoctree_tpu_torch.kernels import fused_mlp
 
 
 class Dense(nn.Module):
-    """flax nn.Dense with its parameter layout: y = x @ kernel + bias."""
+    """flax nn.Dense with its parameter layout: y = x @ kernel + bias.
+
+    Sharded over a model axis (parallel/partition.py sets `tp`), kernel and
+    bias hold this rank's output columns: the forward computes them and
+    gathers the whole output (TrunkMLP.flat_weights gathers the whole
+    weights instead, for the fused kernels)."""
 
     def __init__(self, in_features, out_features):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.tp = None
 
     def forward(self, x, dtype=torch.float32):
+        if self.tp is not None:
+            x = self.tp.copy_in(x)
         if dtype == torch.float32:
-            return x.float() @ self.kernel + self.bias
-        return torch.matmul(x.to(dtype), self.kernel.to(dtype)) + self.bias.to(dtype)
+            y = x.float() @ self.kernel + self.bias
+        else:
+            y = torch.matmul(x.to(dtype), self.kernel.to(dtype)) + self.bias.to(dtype)
+        return y if self.tp is None else self.tp.gather(y)
 
 
 class TrunkMLP(nn.Module):
@@ -153,12 +163,18 @@ class TrunkMLP(nn.Module):
             raise ValueError("the fused trunk kernels have no view-conditioned branch")
         layers = self.layers()
         depth = self.net_depth
+        kernels, biases = [l.kernel for l in layers], [l.bias for l in layers]
+        sharded = [i for i, l in enumerate(layers) if l.tp is not None]
+        if sharded:  # whole weights from a model axis, in one collective
+            whole = layers[sharded[0]].tp.gather_all(
+                [kernels[i] for i in sharded] + [biases[i] for i in sharded])
+            for j, i in enumerate(sharded):
+                kernels[i], biases[i] = whole[j], whole[len(sharded) + j]
         flat = []
-        for layer in layers[:depth]:
-            flat += [layer.kernel, layer.bias.reshape(1, -1)]
-        sig, rgb = layers[depth], layers[depth + 1]
-        flat.append(torch.cat([sig.kernel, rgb.kernel], dim=1))
-        flat.append(torch.cat([sig.bias, rgb.bias]).reshape(1, -1))
+        for k, b in zip(kernels[:depth], biases[:depth]):
+            flat += [k, b.reshape(1, -1)]
+        flat.append(torch.cat(kernels[depth : depth + 2], dim=1))
+        flat.append(torch.cat(biases[depth : depth + 2]).reshape(1, -1))
         meta = dict(
             depth=depth, d_in=self.d_in, width=self.net_width,
             d_out=self.num_sigma_channels + self.num_rgb_channels,

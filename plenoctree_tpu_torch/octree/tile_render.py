@@ -22,12 +22,17 @@ NDC serving (LLFF forward-facing scenes, `ndc=make_ndc_config(...)`)
 converts each ray on the device as data/rays.py::convert_to_ndc does, so
 origins are per ray; the quad-group masks then come from the AABB of each
 group's segment endpoints, since NDC rays share no apex. Over a mesh of
-devices (`TileRenderer(mesh=...)`, the JAX renderer's shard_map) the
-compositing is split by tile range; phase 1 stays on the first device
-(sharding it is ROADMAP.md A9).
+devices (`TileRenderer(mesh=...)`, where the JAX renderer shards phase 1
+through GSPMD and phase 2 through shard_map) the frame is split by tile
+range: each device runs phase 1 and the compositing on its own contiguous
+range of tiles, against its own replicas of the index, and only the
+composited tiles and three per-frame maxima come back to the first device.
 """
 
+import contextlib
+import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +44,9 @@ TILE = 16  # pixels per tile side (256 rays)
 RUNROWS = 128  # default instance rows per compute chunk
 # Same layout version as the JAX package: one index serves both.
 INDEX_FORMAT_VERSION = 6
+# Block ranges per axis-major copy that build_tile_index writes as separate
+# tasks on its thread pool.
+_INDEX_TASKS_PER_AXIS = 4
 # Axis copies are padded to a COPY_PAD multiple so one index serves any
 # runrows <= COPY_PAD.
 COPY_PAD = 1024
@@ -122,10 +130,6 @@ def build_tile_index(
         (corner + size[:, None])[inst_leaf], (inst_vox + 1) / C
     )
     d_cols = data.shape[1]
-    rows = np.zeros((n, 6 + d_cols), np.float32)
-    rows[:, 0:3] = box_lo
-    rows[:, 3:6] = box_hi
-    rows[:, 6:] = data[inst_leaf]
 
     del runrows  # layout is chunking-independent (see COPY_PAD)
     npad = max(-(-n // COPY_PAD) * COPY_PAD, COPY_PAD)
@@ -136,8 +140,10 @@ def build_tile_index(
             f"tile index too large: 3*npad = {3*npad} >= 2^24 rows; phase-1 "
             "one-hot matmul compaction would lose integer exactness."
         )
-    fpad = -(-(6 + d_cols) // 8) * 8
-    soa = np.zeros((fpad, 3 * npad), np.float32)
+    fields = 6 + d_cols
+    fpad = -(-fields // 8) * 8
+    nblk = npad // quantum
+    soa3 = np.zeros((3 * nblk, fpad, quantum), np.float32)
     csr = np.zeros((3, C * C * c2 + 1), np.int64)
     base = np.array([0, npad, 2 * npad], np.int64)
     margin = np.zeros(3, np.float32)
@@ -145,33 +151,41 @@ def build_tile_index(
     col_leaf = np.full(3 * npad, n_kept, np.int32)
     ctr = 0.5 * (box_lo + box_hi)
     ext = box_hi - box_lo
-    nblk = npad // quantum
     blk_bbox = np.zeros((3 * nblk, 8), np.float32)
-    blk_bbox[:, 0:3] = np.inf
-    blk_bbox[:, 3:6] = -np.inf
-    for axis in range(3):
+    orders = [None] * 3
+
+    # Each axis-major copy is sorted, then written straight into its blocks
+    # (rows lo(3) hi(3) data, transposed to fields x quantum) in ranges of
+    # blocks. Every task writes only its own ranges, so they run on
+    # threads: numpy's sorts, gathers and copies release the GIL.
+    def sort(axis):
         p = (axis, (axis + 1) % 3, (axis + 2) % 3)
         v2 = np.clip((ctr[:, p[2]] * c2).astype(np.int64), 0, c2 - 1)
         key = (inst_vox[:, p[0]] * C + inst_vox[:, p[1]]) * c2 + v2
-        order = np.argsort(key, kind="stable")
-        soa[: 6 + d_cols, axis * npad : axis * npad + n] = rows[order].T
+        orders[axis] = order = np.argsort(key, kind="stable")
         col_leaf[axis * npad : axis * npad + n] = inst_leaf[order]
-        count = np.bincount(key, minlength=C * C * c2)
-        csr[axis, 1:] = np.cumsum(count)
+        csr[axis, 1:] = np.cumsum(np.bincount(key, minlength=C * C * c2))
         margin[axis] = 0.5 * float(ext[:, p[2]].max()) if n else 0.0
-        lo_s = np.full((npad, 3), np.inf, np.float32)
-        hi_s = np.full((npad, 3), -np.inf, np.float32)
-        lo_s[:n] = rows[order][:, 0:3]
-        hi_s[:n] = rows[order][:, 3:6]
-        blk_bbox[axis * nblk : (axis + 1) * nblk, 0:3] = lo_s.reshape(
-            nblk, quantum, 3
-        ).min(axis=1)
-        blk_bbox[axis * nblk : (axis + 1) * nblk, 3:6] = hi_s.reshape(
-            nblk, quantum, 3
-        ).max(axis=1)
-    soa3 = np.ascontiguousarray(
-        soa.reshape(fpad, 3 * npad // quantum, quantum).transpose(1, 0, 2)
-    )
+
+    def write(axis, b0, b1):
+        o = orders[axis][b0 * quantum : b1 * quantum]
+        srt = np.zeros(((b1 - b0) * quantum, fields), np.float32)
+        srt[: o.size, 0:3] = box_lo[o]
+        srt[: o.size, 3:6] = box_hi[o]
+        srt[: o.size, 6:] = data[inst_leaf[o]]
+        soa3[axis * nblk + b0 : axis * nblk + b1, :fields] = srt.reshape(
+            b1 - b0, quantum, fields).transpose(0, 2, 1)
+        srt[o.size :, 0:3] = np.inf
+        srt[o.size :, 3:6] = -np.inf
+        blk = srt[:, 0:6].reshape(b1 - b0, quantum, 6)
+        blk_bbox[axis * nblk + b0 : axis * nblk + b1, 0:3] = blk[:, :, 0:3].min(axis=1)
+        blk_bbox[axis * nblk + b0 : axis * nblk + b1, 3:6] = blk[:, :, 3:6].max(axis=1)
+
+    step = -(-nblk // _INDEX_TASKS_PER_AXIS)
+    with ThreadPoolExecutor(min(3 * _INDEX_TASKS_PER_AXIS, os.cpu_count() or 1)) as pool:
+        list(pool.map(sort, range(3)))
+        list(pool.map(lambda t: write(*t), [(a, b, min(b + step, nblk))
+                                             for a in range(3) for b in range(0, nblk, step)]))
     return {
         "col_leaf": col_leaf,
         "n_kept": n_kept,
@@ -635,13 +649,16 @@ class TileRenderer:
     ablate) are not carried over.
 
     `mesh` (parallel/mesh.py::make_mesh; a device may repeat) shards the
-    compositing over its devices, as the JAX renderer's shard_map does:
-    phase 1 runs on the first device (`device` is then ignored), the tile
-    axis is padded to a device multiple (padded tiles carry no pieces),
-    each device composites its slice against its own replica of the soa
-    (the kernel on its own stream on a GPU), and the slices are gathered on
-    the first device. Tiles are independent, so the frame is bitwise the
-    one-device frame.
+    frame over its devices by tile range (`device` is then ignored): the
+    tile axis padded to a device multiple gives each device a contiguous
+    range of ceil(tiles / devices) tiles (the padding is never computed);
+    each device runs phase 1 on its range and composites it against its own
+    replicas of the index arrays (one per distinct device), on its own
+    stream on a GPU, every range launched before any is gathered. The
+    composited tiles and the frame's n_max / nc_max / w1_over (maxima over
+    the devices, so the sticky cap growth sees the one-device values) are
+    gathered on the first device. Tiles are independent, so the frame is
+    bitwise the one-device frame.
     """
 
     def __init__(
@@ -702,18 +719,6 @@ class TileRenderer:
             self.index[k] = torch.as_tensor(index[k], dtype=_F32).to(dev).contiguous()
         for k in ("csr", "base"):
             self.index[k] = torch.as_tensor(index[k], dtype=_I32).to(dev).contiguous()
-        self._slots = None
-        if mesh is not None:
-            for d in mesh.devices:
-                resolve_device(d, "TileRenderer")
-            soas = {}  # one soa replica per distinct device
-            self._slots = []
-            for d in mesh.devices:
-                d = torch.device(d)
-                if d not in soas:
-                    soas[d] = self.index["soa"].to(d)
-                stream = torch.cuda.Stream(d) if d.type == "cuda" else None
-                self._slots.append((d, soas[d], stream))
         self.grid_c = grid_c
         self.fine_c2 = int(self.index["fine_c2"])
         self.rcap = rcap
@@ -730,6 +735,20 @@ class TileRenderer:
             if tree.extra_data is None
             else torch.as_tensor(tree.extra_data, dtype=_F32).to(dev)
         )
+        # (device, replicas, stream) per device the frame is split over. With
+        # no mesh: one slot, the renderer's own arrays on the current stream.
+        self._slots = []
+        replicas = {}  # what phase 1 and the kernel read, per distinct device
+        for d in [self.device] if mesh is None else mesh.devices:
+            d = resolve_device(d, "TileRenderer")
+            if d not in replicas:
+                replicas[d] = self._arrays_on(d)
+            stream = torch.cuda.Stream(d) if mesh is not None and d.type == "cuda" else None
+            self._slots.append((d, replicas[d], stream))
+        if mesh is not None:
+            for d in replicas:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)  # the replicas are read on other streams
         self.output = output
         self.tile = tile
         self.rays = tile * tile
@@ -747,6 +766,22 @@ class TileRenderer:
             stop_thresh=self.opts.stop_thresh,
             od_cap=od_cap,
         )
+
+    _REPLICATED = ("soa", "csr", "base", "blk_bbox", "margin", "offset", "invradius",
+                   "extra_data")
+
+    def _arrays_on(self, device, keys=_REPLICATED):
+        """The arrays phase 1 and the kernel read (the index's, the tree's
+        transform and extra_data) on `device`: the renderer's own where
+        they live there, a mesh slot's replica where one does, else
+        copies."""
+        device = torch.device(device)
+        for d, replica, _ in self._slots:
+            if d == device:
+                return {k: replica[k] for k in keys}
+        own = dict(self.index, offset=self.offset, invradius=self.invradius,
+                   extra_data=self.extra_data)
+        return {k: None if own[k] is None else own[k].to(device) for k in keys}
 
     # -- tile inputs: ray generation, tree-space transform, phase 1 ---------
 
@@ -777,19 +812,27 @@ class TileRenderer:
         )
         return o_ndc, d_ndc
 
-    def make_tile_inputs_fn(self, height, width, fx, rcap, w1cap, ccap=None):
+    def make_tile_inputs_fn(self, height, width, fx, rcap, w1cap, ccap=None, tiles=None,
+                            device=None):
         """Returns fn (c2w, csr, base, extra_data, blk_bbox) ->
         (p2_args, n_total [T], n_pieces_pre [T], w1_over [T]): ray
         generation in quad-major tile order, tree-space transforms, colour
-        basis and the phase-1 frustum walk, all on the renderer's device.
-        p2_args is the kernel's argument tuple without the soa."""
+        basis and the phase-1 frustum walk, all on `device` (default: the
+        renderer's), whose copies of csr, base, extra_data and blk_bbox the
+        caller passes. p2_args is the kernel's argument tuple without the
+        soa. `tiles` = (t0, t1) restricts it to that range of the frame's
+        tiles (T = t1 - t0); each tile's inputs do not depend on the
+        range."""
         ccap = ccap or self.ccap
         TILE = self.tile
         RAYS_T = self.rays
         hp = -(-height // TILE) * TILE
         wp = -(-width // TILE) * TILE
-        n_tiles = (hp // TILE) * (wp // TILE)
-        dev = self.device
+        tile_lo, tile_hi = tiles or (0, (hp // TILE) * (wp // TILE))
+        n_tiles = tile_hi - tile_lo
+        dev = self.device if device is None else torch.device(device)
+        own = self._arrays_on(dev, ("offset", "invradius", "margin"))
+        offset, invradius, margin = own["offset"], own["invradius"], own["margin"]
         corners = torch.as_tensor(_tile_corner_idx(TILE), device=dev).long()
         Q = TILE // 2
         gc_idx = torch.as_tensor(
@@ -804,7 +847,7 @@ class TileRenderer:
         def tile_inputs(c2w, csr, base, extra_data, blk_bbox):
             c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
             tiles_x = wp // TILE
-            t_idx = torch.arange(n_tiles, dtype=_I32, device=dev)[:, None]
+            t_idx = torch.arange(tile_lo, tile_hi, dtype=_I32, device=dev)[:, None]
             r_idx = torch.arange(RAYS_T, dtype=_I32, device=dev)[None, :]
             qi = r_idx // (Q * Q)
             rr = r_idx % (Q * Q)
@@ -831,11 +874,11 @@ class TileRenderer:
                 # convert_to_ndc (near 1) on the device: shift each ray to
                 # the near plane, then project; origins become per ray.
                 o_space, d_world = self._to_ndc(c2w[:3, 3], d_world)
-                o = _fma(o_space, self.invradius, self.offset)
+                o = _fma(o_space, invradius, offset)
             else:
-                o = (c2w[:3, 3] * self.invradius + self.offset).expand(d_world.shape)
+                o = (c2w[:3, 3] * invradius + offset).expand(d_world.shape)
             viewdirs = d_world / _norm3(d_world)[..., None]
-            d = viewdirs * self.invradius
+            d = viewdirs * invradius
             delta_scale = 1.0 / _norm3(d)
             dn = d * delta_scale[..., None]
             # Floor |dn| at 1e-6 (sign-preserving), not lower: the kernel's
@@ -882,7 +925,7 @@ class TileRenderer:
                 chunk_c0, chunk_lo, chunk_hi, chunk_mask, n_kept_p,
                 n_total, w1_over, n_pieces_pre,
             ) = _phase1(
-                csr, base, self.index["margin"], blk_bbox,
+                csr, base, margin, blk_bbox,
                 o[:, corners], dn[:, corners],
                 gplanes, goff, span_lo, span_hi, any_hit,
                 grid_c=self.grid_c, fine_c2=self.fine_c2, w1cap=w1cap,
@@ -932,66 +975,61 @@ class TileRenderer:
         hp = -(-height // TILE) * TILE
         wp = -(-width // TILE) * TILE
         nc = self.n_channels
-        idx = self.index
-        tile_inputs = self.make_tile_inputs_fn(
-            height, width, fx, self.rcap, self.w1cap, self.ccap
-        )
-        p2_args, n_total, n_chunks, w1_over = tile_inputs(
-            c2w, idx["csr"], idx["base"], self.extra_data, idx["blk_bbox"]
-        )
-        if self._slots is None:
-            out = composite_tiles(*p2_args, idx["soa"], **self._kernel_kw)
-        else:
-            out = self._composite_sharded(p2_args)
+        out, maxima = self._render_ranges(c2w, height, width, fx)
         rgb = out[:, :, :nc]
         light = out[:, :, nc]
         img = rgb + light[..., None] * self.opts.background_brightness
         img = _untile(img, hp, wp, TILE)[:height, :width]
-        n_max = n_total.max()
-        nc_max = n_chunks.max()
-        w1_max = w1_over.max().to(_I32)
         if self.output == "u8":
             img8 = torch.round(img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-            tail = torch.stack([n_max, nc_max, w1_max]).to(_I32).view(torch.uint8)
+            tail = maxima.view(torch.uint8)
             return torch.cat([img8.reshape(-1), tail])
+        n_max, nc_max, w1_max = maxima
         return img, n_max, nc_max, w1_max
 
-    def _composite_sharded(self, p2_args):
-        """The compositing over the mesh: the tile axis zero-padded to a
-        device multiple (a padded tile's meta says 0 pieces), one slice per
-        device composited on that device (on its own stream on a GPU,
-        every slice launched before any is gathered), the outputs gathered
-        on the first device without the padding."""
-        n_tiles = p2_args[0].shape[0]
-        ndev = len(self._slots)
-        pad = -n_tiles % ndev
-        if pad:
-            p2_args = tuple(
-                torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))]) for a in p2_args
-            )
-        k = (n_tiles + pad) // ndev
+    def tile_ranges(self, height, width):
+        """[(device, replicas, stream, (t0, t1))]: each slot's contiguous
+        tile range, ceil(tiles / devices) tiles each (the tile axis padded
+        to a device multiple; the whole frame with no mesh); a device past
+        the last tile gets none."""
+        n_tiles = (-(-height // self.tile)) * (-(-width // self.tile))
+        k = -(-n_tiles // len(self._slots))
+        return [(d, rep, stream, (i * k, min((i + 1) * k, n_tiles)))
+                for i, (d, rep, stream) in enumerate(self._slots) if i * k < n_tiles]
+
+    def _render_ranges(self, c2w, height, width, fx):
+        """Phase 1 and the compositing of each slot's tile range on its
+        device (over a mesh on its own stream on a GPU, every range launched
+        before any is gathered); returns the composited tiles [tiles, RAYS,
+        8] and the frame's int32 [n_max, nc_max, w1_over] on the first
+        device."""
         main = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
-        outs = []
-        for i, (dev, soa, stream) in enumerate(self._slots):
-            args = [a[i * k : (i + 1) * k] for a in p2_args]
-            if stream is None:
-                outs.append(composite_tiles(*[a.to(dev) for a in args], soa, **self._kernel_kw))
-                continue
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                args = [a.to(dev, non_blocking=True) for a in args]
-                out = composite_tiles(*args, soa, **self._kernel_kw)
-            for a in args:
-                a.record_stream(stream)
-            outs.append((out, stream))
-        if main is None:
-            return torch.cat(outs)[:n_tiles]
-        gathered = []
-        for out, stream in outs:
-            main.wait_stream(stream)
-            out.record_stream(main)
-            gathered.append(out.to(self.device, non_blocking=True))
-        return torch.cat(gathered)[:n_tiles]
+        parts = []
+        for dev, rep, stream, tiles in self.tile_ranges(height, width):
+            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+            if stream is not None:
+                stream.wait_stream(main)
+            with ctx:
+                tile_inputs = self.make_tile_inputs_fn(
+                    height, width, fx, self.rcap, self.w1cap, self.ccap, tiles=tiles, device=dev
+                )
+                p2_args, n_total, n_chunks, w1_over = tile_inputs(
+                    c2w, rep["csr"], rep["base"], rep["extra_data"], rep["blk_bbox"]
+                )
+                out = composite_tiles(*p2_args, rep["soa"], **self._kernel_kw)
+                maxima = torch.stack([t.max().to(_I32) for t in (n_total, n_chunks, w1_over)])
+            parts.append((out, maxima, stream))
+        outs, maxima = [], []
+        for out, mx, stream in parts:
+            if stream is not None:
+                main.wait_stream(stream)
+                out.record_stream(main)
+                mx.record_stream(main)
+            outs.append(out.to(self.device, non_blocking=True))
+            maxima.append(mx.to(self.device, non_blocking=True))
+        if len(outs) == 1:
+            return outs[0], maxima[0]
+        return torch.cat(outs), torch.stack(maxima).amax(0)
 
     def _fetch(self, out, height, width):
         """Device payload -> (img, n_max, nc_max, w1_over) on the host."""

@@ -14,14 +14,23 @@ data parallelism in the PyTorch way:
     slice run on a model replica of its device (engine.render_image,
     engine.eval_points, TileRenderer(mesh=...)).
 
+  * inference across processes: each rank renders its contiguous share of
+    every chunk over its own devices, and the shares are gathered in rank
+    order (`all_gather_rows`), as the JAX package's process_allgather;
+  * tensor parallelism over the "model" axis (parallel/partition.py): the
+    world laid out row-major over (data, model) as JAX lays out its mesh,
+    with a process subgroup per model index along "data" and one per data
+    index along "model" (`init_groups`, `layout`).
+
 The group code uses `broadcast` and `all_reduce` only: gloo handles CUDA
 tensors for those two collectives, so two ranks may share one card
-(`--dist_backend gloo`), which NCCL refuses.
-
-Not ported (ROADMAP.md A9): tensor parallelism over the "model" axis
-(plenoctree_tpu/parallel/partition.py); a model size above 1 raises.
+(`--dist_backend gloo`), which NCCL refuses. A gather (`all_gather`, for
+the inference rows and the model axis's columns alike) is an all-reduce of
+a zero-filled buffer into which each rank writes its own rows or columns:
+adding zeros is exact (a -0 comes back as +0).
 """
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -35,8 +44,10 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A list of devices shaped (data, model); the port shards the data axis
-    only, so `model` is 1."""
+    """A list of devices shaped (data, model). Inference splits its batches
+    over every device in the list, so a model axis holds replicas there, as
+    in the JAX inference CLIs; training shards parameters over "model"
+    across ranks (`Layout`)."""
 
     devices: tuple
     data: int
@@ -54,7 +65,7 @@ def parse_mesh_shape(mesh_shape, n):
     """[data, model] from a mesh shape (None, "", (), an iterable of up to two
     ints or a comma string) over n devices: empty means (n, 1); one -1 is
     inferred, as in the JAX make_mesh. Raises ValueError when the shape does
-    not cover n devices, NotImplementedError for a model axis above 1."""
+    not cover n devices."""
     if isinstance(mesh_shape, str):
         mesh_shape = [int(x) for x in mesh_shape.split(",") if x.strip()]
     shape = list(mesh_shape or (n,))
@@ -65,12 +76,7 @@ def parse_mesh_shape(mesh_shape, n):
         shape[shape.index(-1)] = n // known
     if int(np.prod(shape)) != n or min(shape) < 1:
         raise ValueError(f"mesh_shape {shape} does not cover {n} devices")
-    if len(shape) == 2 and shape[1] > 1:
-        raise NotImplementedError(
-            f"mesh_shape {shape}: tensor parallelism over the 'model' axis is not "
-            "ported; see ROADMAP.md A9"
-        )
-    return shape[0], 1
+    return shape[0], (shape[1] if len(shape) == 2 else 1)
 
 
 def visible_devices():
@@ -95,7 +101,13 @@ def cli_devices(cfg, device, devices=None):
     """The devices a CLI runs inference on: `devices` when the caller hands
     a list in, else every visible CUDA device for --device cuda (no index),
     else the one named device; shaped by --mesh_shape (a shape that does
-    not cover them raises)."""
+    not cover them raises). Under a process group of several ranks a rank
+    runs on `devices`, else on its one `device`, and --mesh_shape must
+    cover the ranks' devices together."""
+    if world()[1] > 1:
+        devices = list(devices or [device])
+        parse_mesh_shape(getattr(cfg, "mesh_shape", ""), world()[1] * len(devices))
+        return [torch.device(d) for d in devices]
     if devices is None:
         device = torch.device(device)
         devices = visible_devices() if device.type == "cuda" and device.index is None else []
@@ -139,6 +151,78 @@ def world():
     if default_group() is not None:
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in a world laid out row-major over (data, model):
+    rank = data_index * model + model_index, as JAX lays out a (data,
+    model) mesh over its devices. `data_group` joins the ranks of one model
+    index (the gradient all-reduce), `model_group` the ranks of one data
+    index (the tensor-parallel gathers); a group is None where its axis has
+    one rank."""
+
+    rank: int
+    world: int
+    data: int
+    model: int
+    data_group: object = None
+    model_group: object = None
+
+    @property
+    def data_index(self):
+        return self.rank // self.model
+
+    @property
+    def model_index(self):
+        return self.rank % self.model
+
+
+_LAYOUT = None  # set by init_groups
+
+
+def init_groups(mesh_shape=None):
+    """Lay the default process group's ranks out over (data, model) as
+    parse_mesh_shape reads mesh_shape (empty: every rank on "data") and make
+    the subgroups: one along "data" per model index, one along "model" per
+    data index. Every rank must call it, in the same order as its other
+    collectives. Returns the Layout, which `layout()` returns from then on."""
+    import torch.distributed as dist
+
+    global _LAYOUT
+    rank, world_size = world()
+    data, model = parse_mesh_shape(mesh_shape, world_size)
+    data_group = model_group = None
+    if default_group() is not None:
+        if model == 1:
+            data_group = default_group()
+        else:
+            for m in range(model):  # every rank makes every group, in one order
+                g = dist.new_group([d * model + m for d in range(data)])
+                if rank % model == m and data > 1:
+                    data_group = g
+            for d in range(data):
+                g = dist.new_group([d * model + m for m in range(model)])
+                if rank // model == d:
+                    model_group = g
+    _LAYOUT = Layout(rank, world_size, data, model, data_group, model_group)
+    return _LAYOUT
+
+
+def layout():
+    """The Layout of init_groups; without it, every rank of the default group
+    (if any) on the data axis."""
+    if _LAYOUT is not None and default_group() is not None:
+        return _LAYOUT
+    rank, world_size = world()
+    return Layout(rank, world_size, world_size, 1, default_group(), None)
+
+
+def data_world():
+    """(data index, data size): which share of a global batch this rank
+    takes, and of how many (ranks of one data index take the same rows)."""
+    lay = layout()
+    return lay.data_index, lay.data
 
 
 def _backend_for(device, backend):
@@ -187,6 +271,38 @@ def init_distributed(backend=None, device=None, timeout_s=1800):
         timeout=datetime.timedelta(seconds=timeout_s),
     )
     return rank, world_size, device
+
+
+def add_dist_backend_flag(parser):
+    """--dist_backend, the CLIs' process-group backend under torchrun."""
+    parser.add_argument(
+        "--dist_backend", default="", choices=["", "nccl", "gloo"],
+        help="process-group backend under torch.distributed.run (empty: nccl on CUDA "
+             "devices, gloo on the CPU; several ranks on one GPU need gloo)",
+    )
+
+
+@contextlib.contextmanager
+def cli_group(backend, device):
+    """The process group of an inference CLI, as (rank, world, device): the
+    default group where the caller made one (it stays), else the one
+    `python -m torch.distributed.run` set up (init_distributed), which is
+    left through a barrier and destroyed on exit; (0, 1, device) without
+    either."""
+    import torch.distributed as dist
+
+    if default_group() is not None:
+        yield (*world(), torch.device(device))
+        return
+    rank, world_size, device = init_distributed(backend or None, device)
+    made = default_group() is not None
+    try:
+        yield rank, world_size, device
+        if made:
+            dist.barrier()
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def shard_batch(batch, rank, world_size, keep=("sp_points",)):
@@ -248,6 +364,49 @@ def broadcast_(tensors, src=0, group=None):
     dist.broadcast(flat, src=src, group=group)
     _unflat_(flat, tensors)
     return tensors
+
+
+def all_reduce_sum(x, group=None):
+    """x summed over the group: a new tensor in x's dtype (bf16 / f16 summed
+    in f32), through one all-reduce, which gloo runs on CUDA tensors too."""
+    import torch.distributed as dist
+
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    buf = x.float() if wide else x.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.dtype)
+
+
+def all_gather(xs, dim=0, group=None, reduce=None):
+    """Each of this rank's tensors xs (alike in shape on every rank) -> the
+    group's, concatenated along `dim` in rank order, on every rank: one
+    all-reduce of a flat zero-filled bucket holding this rank's slices
+    (exact, apart from -0 becoming +0). `reduce(flat)` runs that
+    all-reduce (default: all_reduce_sum over the group)."""
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    parts = []
+    for x in xs:
+        k = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * k
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, rank * k, k).copy_(x)
+        parts.append(buf)
+    flat = torch.cat([b.reshape(-1) for b in parts])
+    flat = reduce(flat) if reduce is not None else all_reduce_sum(flat, group)
+    out, off = [], 0
+    for b in parts:
+        out.append(flat[off : off + b.numel()].view_as(b))
+        off += b.numel()
+    return out
+
+
+def all_gather_rows(x, group=None):
+    """The group's x (each rank's [k, ...] tensor, k alike on every rank)
+    stacked in rank order, [world * k, ...], on x's device (all_gather)."""
+    return all_gather([x], 0, group)[0]
 
 
 def broadcast_params_(model, src=0, group=None):

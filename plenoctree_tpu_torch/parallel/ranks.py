@@ -1,5 +1,6 @@
-"""Run a function on the ranks of a local process group, and the
-data-parallel train-step check that the tests and chip_smoke.py run on it.
+"""Run a function on the ranks of a local process group, and the checks
+that the tests and chip_smoke.py run on it: the train step (data and
+tensor parallel), inference and the inference CLIs across ranks.
 
 `run_ranks("pkg.module:function", world, kwargs)` starts `world` Python
 processes, joins them into one process group through a FileStore in a
@@ -103,6 +104,27 @@ def _child(target, tmp, rank, world, backend, timeout):
         pickle.dump(result, f)
 
 
+def groups(rank, world, mesh_shape):
+    """mesh.init_groups(mesh_shape) on this rank: (data index, model index,
+    the ranks of its data-axis group, the ranks of its model-axis group),
+    each group's ranks found by an all-reduce of one-hot rank vectors."""
+    import torch.distributed as dist
+
+    from plenoctree_tpu_torch.parallel import mesh as mesh_lib
+
+    lay = mesh_lib.init_groups(mesh_shape)
+    members = []
+    for g in (lay.data_group, lay.model_group):
+        if g is None:
+            members.append([rank])
+            continue
+        hot = torch.zeros(world)
+        hot[rank] = 1.0
+        dist.all_reduce(hot, group=g)
+        members.append([int(r) for r in torch.nonzero(hot)[:, 0]])
+    return lay.data_index, lay.model_index, members[0], members[1]
+
+
 def collectives(rank, world):
     """all_reduce_mean_ of rank-dependent tensors, then broadcast_params_ of
     a Linear whose parameters are rank + 7 from rank 1: what this rank
@@ -119,7 +141,46 @@ def collectives(rank, world):
     return [t.numpy() for t in a], [p.detach().numpy() for p in model.parameters()]
 
 
-# -- the data-parallel train-step check ---------------------------------------
+# -- inference across ranks ---------------------------------------------------
+
+
+def inference(rank, world, cfg, params, rays, points, chunk, points_chunk, device="cpu"):
+    """engine.render_image of `rays` ([H, W, 3] arrays) at `chunk` and
+    engine.eval_points of the fine trunk's (rgb, sigma) at `points` [N, 3]
+    at `points_chunk`, on this rank's share of every chunk over the default
+    process group: what every rank gets back (numpy)."""
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.data.rays import Rays
+    from plenoctree_tpu_torch.models.nerf import NerfModel
+    from plenoctree_tpu_torch.octree.extract import make_points_fn
+    from plenoctree_tpu_torch.utils import config as config_lib
+
+    device = torch.device(device)
+    model = NerfModel(config_lib.default_config(**cfg))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    model.to(device).eval()
+    image = engine.render_image(model, Rays(*rays), chunk=chunk, device=device)
+    pts = torch.as_tensor(points).to(device)
+    with torch.no_grad():
+        rgb, sigma = engine.eval_points(make_points_fn(model, device), pts, points_chunk)
+    return [np.asarray(x) for x in image] + [rgb.cpu().numpy(), sigma.cpu().numpy()]
+
+
+def cli(rank, world, module, argv, devices=None):
+    """main(argv) of plenoctree_tpu_torch.cli.<module> on this rank (each
+    '{rank}' in an argument becomes the rank, so that each rank may have a
+    train dir of its own, as hosts have disks of their own); returns what
+    main returns, with tensors as numpy."""
+    import importlib
+
+    main = importlib.import_module(f"plenoctree_tpu_torch.cli.{module}").main
+    out = main([a.replace("{rank}", str(rank)) for a in argv], devices=devices)
+    if isinstance(out, dict):
+        out = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+    return out
+
+
+# -- the train-step checks ----------------------------------------------------
 
 
 def _numpy(tensors):
@@ -141,21 +202,27 @@ def _to_device(tree, device):
 
 
 def train_steps(rank, world, cfg, params, batches, draws=None, opt_state=None, device="cpu",
-                launches=False):
+                launches=False, mesh_shape=None):
     """Steps of engine.make_train_step on this rank's rows of each global
     batch (and of each handed-in draws dict; its 'sp_points' go to every
     rank whole), from `params` ({name: array}, the model's state_dict names)
     and, where given, `opt_state` ({'count', 'mu', 'nu'}); where a default
     process group exists (run_ranks makes one, of one rank too) the
-    gradients are averaged over it.
+    gradients are averaged over it. With `mesh_shape` (data, model) the
+    ranks are laid out over both axes (mesh.init_groups): the batch is split
+    over "data", the Dense layers sharded over "model"
+    (partition.shard_train_state) and the gradients averaged over the
+    data-axis group.
 
     Returns {'stats': [per step {name: float}], 'grads': [per step {name:
     array}] (what Adam was given), 'params' / 'mu' / 'nu': [before the first
-    step, then after each]} and, with `launches`, the fused trunk kernels'
-    launch counts and the all-reduce's ms per step."""
+    step, then after each]}, whole tensors under tensor parallelism too,
+    and, with `launches`, the fused trunk kernels' launch counts, the
+    all-reduce's and the model axis's collectives' ms per step."""
     from plenoctree_tpu_torch import engine
     from plenoctree_tpu_torch.models.nerf import NerfModel
-    from plenoctree_tpu_torch.parallel.mesh import default_group, shard_batch
+    from plenoctree_tpu_torch.parallel import mesh as mesh_lib
+    from plenoctree_tpu_torch.parallel import partition
     from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
     from plenoctree_tpu_torch.utils import config as config_lib
 
@@ -174,17 +241,31 @@ def train_steps(rank, world, cfg, params, batches, draws=None, opt_state=None, d
                     t.copy_(torch.as_tensor(opt_state[m][k]))
         state.opt_state["count"] = int(opt_state["count"])
         state.step = int(opt_state["count"])
-    step_fn = engine.make_train_step(model, tcfg, default_group())
+    if mesh_shape is None:
+        group, share, shares = mesh_lib.default_group(), rank, world
+    else:
+        lay = mesh_lib.init_groups(mesh_shape)
+        group, share, shares = lay.data_group, lay.data_index, lay.data
+        if lay.model > 1:
+            state = partition.shard_train_state(state, model, lay)
+    tp = getattr(model, "tp", None)
+    whole = (lambda t: t) if tp is None else (lambda t: partition.gather_tree(t, tp))
+    step_fn = engine.make_train_step(model, tcfg, group)
 
     seen = []
     real_update = ckpt_utils.adam_update
 
     def spy(st, grads, lr):
-        seen.append(_numpy(grads))
+        seen.append(_numpy(whole(grads)))
         real_update(st, grads, lr)
 
-    out = {"stats": [], "params": [_numpy(state.params)], "mu": [_numpy(state.opt_state["mu"])],
-           "nu": [_numpy(state.opt_state["nu"])]}
+    def record(st):
+        out["params"].append(_numpy(whole(st.params)))
+        out["mu"].append(_numpy(whole(st.opt_state["mu"])))
+        out["nu"].append(_numpy(whole(st.opt_state["nu"])))
+
+    out = {"stats": [], "params": [], "mu": [], "nu": []}
+    record(state)
     if launches:
         from plenoctree_tpu_torch.kernels import fused_mlp
 
@@ -192,13 +273,12 @@ def train_steps(rank, world, cfg, params, batches, draws=None, opt_state=None, d
     ckpt_utils.adam_update = spy
     try:
         for k, batch in enumerate(batches):
-            local = _to_device(shard_batch(batch, rank, world), device)
-            d = None if draws is None else _to_device(shard_batch(draws[k], rank, world), device)
+            local = _to_device(mesh_lib.shard_batch(batch, share, shares), device)
+            d = (None if draws is None
+                 else _to_device(mesh_lib.shard_batch(draws[k], share, shares), device))
             state, stats, _ = step_fn(state, local, None, d)
             out["stats"].append({n: float(v) for n, v in zip(engine.Stats._fields, stats)})
-            out["params"].append(_numpy(state.params))
-            out["mu"].append(_numpy(state.opt_state["mu"]))
-            out["nu"].append(_numpy(state.opt_state["nu"]))
+            record(state)
     finally:
         ckpt_utils.adam_update = real_update
     out["grads"] = seen
@@ -206,6 +286,7 @@ def train_steps(rank, world, cfg, params, batches, draws=None, opt_state=None, d
         out["fwd_launches"] = fused_mlp.fwd_launches
         out["bwd_launches"] = fused_mlp.bwd_launches
         out["all_reduce_ms"] = step_fn.all_reduce_ms()
+        out["model_collectives_ms"] = step_fn.model_collectives_ms()
     return out
 
 

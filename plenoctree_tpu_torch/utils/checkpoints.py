@@ -18,6 +18,12 @@ JaxNeRF / NeRF-SH checkpoints ({'optimizer': {'target', 'state'}}, in
 either form) import as the JAX package imports them: their params and
 step, with a fresh Adam.
 
+Under tensor parallelism (parallel/partition.py) a checkpoint keeps this
+one-process layout: the train CLI gathers every sharded leaf of the
+params and of mu / nu on every rank (partition.gather_train_state) and
+rank 0 writes it here; a restore reads whole leaves, which
+partition.shard_train_state then cuts.
+
 Adam equals optax.adam(1.0) (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
 bias-corrected) with the step's lr multiplied in afterwards, as the JAX
 train step does. The port updates parameters and moments in place.

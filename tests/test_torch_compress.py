@@ -156,17 +156,42 @@ def test_compress_cli(tmp_path, capsys, jax_numpy_path):
     assert "native: numpy paths (PLENOCTREE_NO_NATIVE is set)" in text
 
 
+@pytest.fixture
+def native_default_paths(monkeypatch):
+    """Both packages' default paths with their native libraries loaded.
+
+    The JAX package builds its library with g++ straight onto its output
+    path while tests/test_native.py is collected, so under xdist a worker
+    can load a half-written file and keep None for good. No g++ is writing
+    once tests run: one reset of the JAX handle and a second try load the
+    whole file. Skips only if a library still does not load."""
+    monkeypatch.delenv("PLENOCTREE_NO_NATIVE", raising=False)
+    if native.get_lib() is None:
+        monkeypatch.setattr(native, "_LIB", None)
+        monkeypatch.setattr(native, "_TRIED", False)
+    if native.get_lib() is None:
+        pytest.skip("the JAX package's native library is unavailable")
+    if port_native.get_lib() is None:
+        pytest.skip(f"the port's native library is unavailable: {port_native.build_error}")
+
+
 @pytest.mark.parametrize("data_format,basis_dim", [("RGBA", 1), ("SH9", 9), ("SG4", 4)])
-def test_compress_cli_equals_jax_cli_on_default_paths(data_format, basis_dim, tmp_path):
+def test_compress_cli_equals_jax_cli_on_default_paths(data_format, basis_dim, tmp_path, capsys,
+                                                      native_default_paths):
     """One tree per format through both compress CLIs as a user runs them
-    (each package's default path: its native median cut where the library
-    loads), with --weighted, whose palettes the numpy path rounds
-    otherwise: the two files hold the same arrays, bit for bit."""
+    (each package's default path: its native median cut), with --weighted,
+    whose palettes the numpy path rounds otherwise: each CLI took its native
+    path, and the two files hold the same arrays, bit for bit."""
     src = _tree_npz(tmp_path / "tree.npz", 4, basis_dim=basis_dim, depth=5,
                     data_format=data_format, n_points=3000)
     flags = ["--bits", "12", "--weighted"]
     jcompress_cli.main([src, "--out_dir", str(tmp_path / "jax"), *flags])
+    assert native._LIB is not None, "the JAX compress CLI took its numpy path"
+    cuts = port_native.calls["median_cut"]
     compress_cli.main([src, "--out_dir", str(tmp_path / "port"), *flags])
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("native:")]
+    assert line and line[-1].startswith("native: g++ library"), f"the port's compress CLI took another path: {line}"
+    assert port_native.calls["median_cut"] - cuts == basis_dim
     za, zb = np.load(tmp_path / "jax" / "tree.npz"), np.load(tmp_path / "port" / "tree.npz")
     assert sorted(za.files) == sorted(zb.files) and "quant_colors" in zb.files
     assert zb["quant_colors"].shape[0] == basis_dim

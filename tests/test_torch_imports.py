@@ -491,6 +491,8 @@ assert sys.modules["jax"] is None  # the sitecustomize block is in force
 import numpy as np
 import plenoctree_tpu_torch.parallel
 import plenoctree_tpu_torch.parallel.mesh
+import plenoctree_tpu_torch.parallel.partition
+from plenoctree_tpu_torch import engine
 from plenoctree_tpu_torch.data.rays import Rays
 from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
 from plenoctree_tpu_torch.models.nerf import construct_nerf
@@ -512,9 +514,23 @@ draws = [{"sp_points": rng.uniform(-1, 1, (16, 3)).astype(np.float32)}]
 kw = dict(cfg=cfg, params=params, batches=[batch], draws=draws)
 two = run_ranks("plenoctree_tpu_torch.parallel.ranks:train_steps", 2, kw, timeout=120)
 one = train_steps(0, 1, **kw)
+tp = run_ranks("plenoctree_tpu_torch.parallel.ranks:train_steps", 2, dict(kw, mesh_shape="1,2"),
+               timeout=120)
 for k, p in one["params"][-1].items():
     assert np.array_equal(two[0]["params"][-1][k], two[1]["params"][-1][k]), k
     assert np.abs(two[0]["params"][-1][k] - p).max() <= 1e-5, k
+    assert np.array_equal(tp[0]["params"][-1][k], tp[1]["params"][-1][k]), k
+    assert np.abs(tp[0]["params"][-1][k] - p).max() <= 1e-5, k
+o = np.tile(np.float32([0, 0, 4]), (5, 7, 1))
+dirs = rng.normal(size=(5, 7, 3)).astype(np.float32)
+rays = (o, dirs, dirs / np.linalg.norm(dirs, axis=-1, keepdims=True))
+pts = rng.uniform(-1, 1, (50, 3)).astype(np.float32)
+inf = run_ranks("plenoctree_tpu_torch.parallel.ranks:inference", 2,
+                dict(cfg=cfg, params=params, rays=rays, points=pts, chunk=16, points_chunk=20))
+assert all(np.array_equal(a, b) for a, b in zip(inf[0], inf[1]))
+model = construct_nerf(config_lib.default_config(**cfg))
+split = engine.render_image(model, Rays(*rays), chunk=16, devices=["cpu"] * 2)
+assert all(np.array_equal(a, b) for a, b in zip(split, inf[0]))
 tree = build_scene_tree(3, 1, 0.0, 0)
 _, c2ws, focal = render_synthetic_scene("test", 1, 24, True, 2.0, 6.0)
 a = TileRenderer(tree, device="cpu").render_persp(c2ws[0], 24, 24, focal)
@@ -529,9 +545,11 @@ print("OK")
 
 def test_parallel_slice_runs_without_jax_stack(tmp_path):
     """plenoctree_tpu_torch.parallel imports, a 2-rank gloo train step (its
-    ranks' processes under the same block, through a sitecustomize.py)
-    matches the one-process step, and a frame sharded over three CPU
-    devices equals the one-device frame, with the JAX stack blocked."""
+    ranks' processes under the same block, through a sitecustomize.py) and
+    a 1 x 2 tensor-parallel one match the one-process step, render_image
+    across 2 ranks equals one process split over two devices, and a frame
+    sharded over three CPU devices equals the one-device frame, with the
+    JAX stack blocked."""
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(_BLOCK)

@@ -11,6 +11,8 @@ also shows the fault the port's native path repairs.
 
 Every test needs both libraries built (g++): the `libs` fixture skips
 otherwise, with the reason, as tests/test_native.py skips without its own.
+A JAX library handle lost to a build race at collection is retried first
+(`jax_lib_retried`).
 """
 
 import os
@@ -30,12 +32,28 @@ from plenoctree_tpu_torch.octree.n3tree import N3Tree
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def jax_lib_retried(monkeypatch):
+    """The JAX package's native library, loaded again if a first try failed.
+
+    The JAX package builds its library with g++ straight onto its output
+    path, and tests/test_native.py asks for it while pytest collects. Under
+    xdist every worker collects every file, so several g++ processes write
+    that file at once, and a worker that loads it half-written keeps None
+    for good. By the time a test runs no g++ is writing, so one reset of the
+    handle and a second try load the whole file; None after that means the
+    library cannot be built here."""
+    if jnative.get_lib() is None:
+        monkeypatch.setattr(jnative, "_LIB", None)
+        monkeypatch.setattr(jnative, "_TRIED", False)
+    return jnative.get_lib()
+
+
 @pytest.fixture
 def libs(monkeypatch):
     monkeypatch.delenv("PLENOCTREE_NO_NATIVE", raising=False)
     if native.get_lib() is None:
         pytest.skip(f"the port's native library is unavailable: {native.build_error}")
-    if jnative.get_lib() is None:
+    if jax_lib_retried(monkeypatch) is None:
         pytest.skip("the JAX package's native library is unavailable")
 
 

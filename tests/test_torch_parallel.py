@@ -115,15 +115,15 @@ def test_make_mesh_matches_jax_shapes(shape, n):
 
 
 @pytest.mark.parametrize("shape,n,error", [("2", 3, ValueError), ("4", 3, ValueError),
-                                           ("1,2", 2, NotImplementedError),
-                                           ("2,2", 4, NotImplementedError),
-                                           ("-1,2", 4, NotImplementedError),
+                                           ("1,2", 3, ValueError),
+                                           ("2,2", 2, ValueError),
+                                           ("-1,2", 3, ValueError),
                                            ("1,1,1", 1, ValueError)])
 def test_make_mesh_refuses(shape, n, error):
-    with pytest.raises(error) as e:
+    """Shapes that do not cover the devices (a model axis too: it is ported,
+    tests/test_torch_partition.py) or have three axes."""
+    with pytest.raises(error):
         parallel.make_mesh(shape, ["cpu"] * n)
-    if error is NotImplementedError:
-        assert "ROADMAP.md" in str(e.value)
 
 
 @pytest.mark.parametrize("n,multiple", [(10, 3), (9, 3), (1, 4), (7, 8)])
