@@ -260,6 +260,23 @@ Phases, one line each with its wall time:
      times a step on each rank, each rank's ms/step and model-axis
      collectives' ms/step.
 
+ 38. LLFF JPEG full resolution, on a thread beside the fleets (phase 25):
+     a 9-frame LLFF capture at 4032x3024 (the size of nerf_llff_data's
+     images/; 3 distinct views, each file copied to 3 frames), baseline
+     4:2:0 JPEG at quality 92 with a restart marker every MCU row, written
+     by the numpy encoder in tests/torch_fixtures/jpeg_writer.py (one
+     niced process a view); the
+     train CLI as `python -m` (niced) on it at --factor 0 (7 train, 2 test)
+     with the LLFF model flags at full width, --use_pallas bf16, 20 steps:
+     load seconds, peak RSS of the process, ms/step, kernels #1/#2
+     launched 3 + 3 times a step, both splits' `jpeg:` lines on the C++
+     path, a finite train PSNR; after the fleets, on a quiet host, one
+     frame decoded alone (s/frame, entropy decoding vs the rest, bytes and
+     bits per pixel) through the C++ scan decoder (the run fails on the
+     Python one), then every committed JPEG fixture
+     (tests/torch_fixtures/jpeg) decoded bitwise to PIL's decode stored
+     beside it.
+
 A "total" line gives the wall time of the run before the kernels line.
 Each kernel in the final JSON line carries its bound: the larger of the
 bytes it must move (each input read once, each output written once; for the
@@ -488,6 +505,19 @@ TP_STEPS = 20
 NCCL_STEPS = 5
 DP_CLI_TIMEOUT = 300
 N_SHARDED_POSES = 4
+# Phase 38, full-resolution LLFF from JPEG frames: nerf_llff_data's images/
+# size (fern: 4032x3024 phone JPEGs), 9 views (a capture has 20-60),
+# llffhold 8 (7 train frames, 2 test), 20 of the 2M steps.
+JPEG_VIEWS = 9
+JPEG_DISTINCT = 3  # views encoded; each file is copied to 3 of the 9 frames (encoder time)
+JPEG_W, JPEG_H = 4032, 3024
+JPEG_SMALL = 126  # the rendered views, upsampled 32 x 24
+JPEG_NOISE = 12.0  # ~2.5 bits a pixel at quality 92, 4:2:0 (a photograph: 2-4)
+JPEG_QUALITY = 92
+JPEG_STEPS = 20
+JPEG_TRAIN_TIMEOUT = 600
+JPEG_WRITER = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg_writer.py")
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -2782,6 +2812,210 @@ def tp_train_path():
                            f"params over tolerance by {param_excess}")
 
 
+# One frame of phase 38's capture, in a process of its own that imports
+# numpy and the encoder only: view i of the small capture upsampled ry x rx,
+# the seeded noise added, encoded. argv: the encoder's path, the views' npy,
+# i, the output path, ry, rx, the noise, the seed, the quality, the restart
+# interval.
+_JPEG_FRAME_CODE = """
+import importlib.util, os, sys, time
+import numpy as np
+os.nice(10)  # beside the fleets: they keep the host first
+t0 = time.perf_counter()
+path, views, i, out, ry, rx, noise, seed, quality, restart = sys.argv[1:]
+spec = importlib.util.spec_from_file_location("jpeg_writer", path)
+writer = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(writer)
+view = np.load(views)[int(i)].astype(np.float32)
+big = np.repeat(np.repeat(view, int(ry), axis=0), int(rx), axis=1)
+big += float(noise) * np.random.default_rng(int(seed)).standard_normal(big.shape, np.float32)
+img = np.clip(big, 0, 255).astype(np.uint8)
+n = writer.write_jpeg(out, img, quality=int(quality), restart_interval=int(restart))
+print(n, time.perf_counter() - t0)
+"""
+
+
+def _write_jpeg_capture(root):
+    """Phase 38's capture: JPEG_VIEWS forward-facing poses of the port's
+    LLFF writer (views rendered at JPEG_SMALL), the first JPEG_DISTINCT
+    views upsampled to JPEG_W x JPEG_H (stretched 4:3), plus seeded
+    N(0, JPEG_NOISE) noise so the entropy stream is as dense as a
+    photograph's, written as baseline 4:2:0 JPEG at JPEG_QUALITY with a
+    restart marker every MCU row by the numpy encoder
+    (tests/torch_fixtures/jpeg_writer.py), one process a view, all at once
+    (the encoder's numpy steps hold the GIL too often for threads); frame
+    i is a copy of file i % JPEG_DISTINCT; poses_bounds.npy with the focal
+    scaled to the height. Returns (scene, bytes per frame, encode seconds
+    per distinct view)."""
+    import shutil
+
+    from plenoctree_tpu_torch.data.synthetic import write_llff_dataset
+    from plenoctree_tpu_torch.utils.png import read_png
+
+    small = write_llff_dataset(os.path.join(root, "small"), JPEG_VIEWS, JPEG_SMALL)
+    views = os.path.join(root, "small", "views.npy")
+    np.save(views, np.stack([read_png(os.path.join(small, "images", f"img_{i:03d}.png"))
+                             for i in range(JPEG_VIEWS)]))
+    scene = os.path.join(root, "scene")
+    shutil.rmtree(scene, ignore_errors=True)
+    os.makedirs(os.path.join(scene, "images"))
+    ry, rx = JPEG_H // JPEG_SMALL, JPEG_W // JPEG_SMALL
+    poses = np.load(os.path.join(small, "poses_bounds.npy"))
+    poses[:, 4], poses[:, 9], poses[:, 14] = JPEG_H, JPEG_W, poses[:, 14] * ry
+    np.save(os.path.join(scene, "poses_bounds.npy"), poses)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _JPEG_FRAME_CODE, JPEG_WRITER, views, str(i),
+         os.path.join(scene, "images", f"img_{i:03d}.jpg"), str(ry), str(rx), str(JPEG_NOISE),
+         str(SEED + i), str(JPEG_QUALITY), str(-(-JPEG_W // 16))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(JPEG_DISTINCT)]
+    outs = [p.communicate(timeout=JPEG_TRAIN_TIMEOUT)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError("the JPEG capture's encoder failed:\n" + "\n".join(outs))
+    for i in range(JPEG_DISTINCT, JPEG_VIEWS):
+        shutil.copyfile(os.path.join(scene, "images", f"img_{i % JPEG_DISTINCT:03d}.jpg"),
+                        os.path.join(scene, "images", f"img_{i:03d}.jpg"))
+    fields = [o.split() for o in outs]
+    sizes = [int(fields[i % JPEG_DISTINCT][0]) for i in range(JPEG_VIEWS)]
+    return scene, sizes, [round(float(f[1]), 2) for f in fields]
+
+
+def llff_jpeg_train():
+    """Phase 38a, on a thread beside the fleets (its encoders and the train
+    CLI are processes): the 9-view 4032x3024 JPEG capture
+    (_write_jpeg_capture), then `python -m plenoctree_tpu_torch.cli.train
+    --dataset llff --factor 0` on it (llffhold 8: frames 0 and 8 are the
+    test split, 7 train) with the LLFF smoke's model flags at full width,
+    --use_pallas bf16, JPEG_STEPS steps and no render: the load's seconds
+    and the process's peak RSS, ms/step, kernels #1/#2's launches (3 + 3 a
+    step), each split's `jpeg:` line (the C++ path), a finite train PSNR.
+    Returns (scene, bytes per frame, seconds, phase line fields): the main
+    thread prints the line, since phases on it redirect the process's
+    stdout into their logs meanwhile."""
+    import re
+    import shutil
+
+    from plenoctree_tpu_torch.utils.metrics_writer import read_scalars
+
+    t0 = time.time()
+    root = os.path.join(ROOT, "build", "smoke", "llff_jpeg")
+    scene, sizes, encode_s = _write_jpeg_capture(root)
+    write_s = time.time() - t0
+    config = os.path.join(root, "llff_jpeg.yaml")
+    with open(config, "w") as f:
+        f.write("dataset: llff\nfactor: 0\nllffhold: 8\nnear: 0.0\nfar: 1.0\n"
+                "white_bkgd: false\nimage_batching: true\nbatch_size: 1024\nsh_deg: 3\n"
+                "use_viewdirs: false\n"
+                "num_coarse_samples: 64\nnum_fine_samples: 128\nrandomized: true\n")
+    train_dir = os.path.join(root, "train")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    # niced, as the encoders are: beside the fleets, they keep the host first
+    cmd = ["nice", "-n", "10", sys.executable, "-m", "plenoctree_tpu_torch.cli.train",
+           "--config", config,
+           "--data_dir", scene, "--train_dir", train_dir, "--device", "cuda",
+           *TRAINED_MODEL_FLAGS, "--max_steps", str(JPEG_STEPS), "--print_every", "1",
+           "--save_every", str(JPEG_STEPS), "--render_every", str(10 * JPEG_STEPS)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    t1 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    deadline = threading.Timer(JPEG_TRAIN_TIMEOUT, proc.kill)
+    deadline.start()
+    stamped = []
+    try:
+        for line in proc.stdout:
+            stamped.append((time.time(), line.rstrip("\n")))
+        # wait4: the exit status and this child's own peak resident set
+        _, status, usage = os.wait4(proc.pid, 0)
+        rc = proc.returncode = os.waitstatus_to_exitcode(status)
+    finally:
+        deadline.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cli_s = time.time() - t1
+    peak_rss = usage.ru_maxrss * 1024  # KiB on Linux
+    with open(os.path.join(root, "train.log"), "w") as f:
+        f.write("\n".join(x for _, x in stamped) + "\n")
+    out = [x for _, x in stamped]
+    if rc != 0:
+        raise RuntimeError(f"the train CLI on the JPEG capture failed with {rc}:\n"
+                           + "\n".join(out[-40:]))
+
+    def when(prefix):
+        return next(t for t, x in stamped if x.startswith(prefix))
+
+    load_s = when("* Load model") - when("* Load train data")
+    train_load_s = when("* Load test data") - when("* Load train data")
+    jpeg_lines = [x for x in out if x.startswith("jpeg:")]
+    frames = [int(x.split()[1]) for x in jpeg_lines]
+    rank = next((x for x in out if x.startswith("* rank 0/1:")), "")
+    m = re.search(r"(\d+) steps, ([\d.]+) ms/step, trunk launches fwd (\d+) bwd (\d+)", rank)
+    psnr = [v for _, v in read_scalars(train_dir, "train_psnr")]
+    line = dict(beside="the fleets, niced", frames=JPEG_VIEWS, distinct=JPEG_DISTINCT,
+                size=f"{JPEG_W}x{JPEG_H}", quality=JPEG_QUALITY, write_s=round(write_s, 2),
+                encode_s_per_view=json.dumps(encode_s), bytes_per_frame=json.dumps(sizes),
+                steps=JPEG_STEPS, cli_s=round(cli_s, 2), frames_by_split=json.dumps(frames),
+                load_s=round(load_s, 2), train_split_load_s=round(train_load_s, 2),
+                test_split_load_s=round(load_s - train_load_s, 2),
+                peak_rss_gib=round(peak_rss / 2**30, 3),
+                ms_per_step=float(m.group(2)) if m else None,
+                fwd_launches=int(m.group(3)) if m else None,
+                bwd_launches=int(m.group(4)) if m else None,
+                train_psnr_last=psnr[-1] if psnr else None, jpeg_lines=json.dumps(jpeg_lines))
+    seconds = time.time() - t0
+    if not m or (int(m.group(1)), int(m.group(3)), int(m.group(4))) != (
+            JPEG_STEPS, 3 * JPEG_STEPS, 3 * JPEG_STEPS):
+        raise RuntimeError(f"the JPEG train run's rank line {rank!r}: want {JPEG_STEPS} steps "
+                           f"and 3 + 3 trunk launches a step")
+    n_test = len(range(0, JPEG_VIEWS, 8))
+    if frames != [JPEG_VIEWS - n_test, n_test] or \
+            not all("g++ scan decoder" in x for x in jpeg_lines):
+        raise RuntimeError(f"the loaders did not decode through the C++ path: {jpeg_lines}")
+    if len(psnr) != JPEG_STEPS or not all(math.isfinite(v) for v in psnr):
+        raise RuntimeError(f"non-finite train PSNR on the JPEG capture: {psnr}")
+    return scene, sizes, seconds, line
+
+
+def llff_jpeg_decode(scene, sizes, train_seconds, train_line):
+    """Phase 38b, after the fleets, on a quiet host: phase 38a's line, then
+    one frame of the capture decoded alone in this process (s/frame, the
+    split between entropy decoding and the rest, bytes and bits per pixel),
+    which must take the C++ scan decoder; then every committed fixture
+    (tests/torch_fixtures/jpeg) decoded bitwise to PIL's decode beside it."""
+    import glob
+
+    from plenoctree_tpu_torch.utils import jpeg
+
+    phase("LLFF JPEG full-resolution train CLI", time.time() - train_seconds, **train_line)
+    t0 = time.time()
+    if jpeg.get_lib() is None:
+        raise RuntimeError(f"the C++ JPEG scan decoder did not build or load: "
+                           f"{jpeg.build_error}")
+    first = os.path.join(scene, "images", "img_000.jpg")
+    before = dict(jpeg.timing)
+    calls0 = dict(jpeg.calls)
+    t1 = time.perf_counter()
+    img = jpeg.read_jpeg(first)
+    decode_s = time.perf_counter() - t1
+    entropy_s = jpeg.timing["entropy_s"] - before["entropy_s"]
+    if img.shape != (JPEG_H, JPEG_W, 3) or jpeg.calls["native"] == calls0["native"]:
+        raise RuntimeError(f"decode of {first}: shape {img.shape}, scans {jpeg.calls}")
+    phase("LLFF JPEG frame decode", t0, size=f"{JPEG_W}x{JPEG_H}", bytes=sizes[0],
+          bits_per_pixel=round(8 * sizes[0] / (JPEG_W * JPEG_H), 4),
+          decode_s=round(decode_s, 4), entropy_s=round(entropy_s, 4),
+          rest_s=round(decode_s - entropy_s, 4), path=repr(jpeg.summary()))
+
+    t0 = time.time()
+    fixtures = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    bad = [p for p in fixtures
+           if not np.array_equal(jpeg.read_jpeg(p), np.load(p[:-4] + ".npy"))]
+    phase("JPEG fixtures vs PIL's decode", t0, fixtures=len(fixtures), bitwise=len(fixtures) -
+          len(bad), path=repr(jpeg.summary()))
+    if not fixtures or bad:
+        raise RuntimeError(f"JPEG fixtures not bitwise PIL's decode: {bad} of {len(fixtures)}")
+
+
 def dp_train_path(train_dir):
     """Phase 33: data-parallel training. Two gloo ranks on cuda:0, each half
     of a 4096-ray batch, one step of the blender config at full width from
@@ -3067,6 +3301,7 @@ def main():
     from plenoctree_tpu_torch.data.synthetic import build_scene_tree, render_synthetic_scene
     from plenoctree_tpu_torch import native
     from plenoctree_tpu_torch.kernels import _build
+    from plenoctree_tpu_torch.utils import jpeg
     from plenoctree_tpu_torch.kernels import fused_mlp
     from plenoctree_tpu_torch.kernels import gather_sum
     from plenoctree_tpu_torch.kernels import tile_composite
@@ -3089,7 +3324,8 @@ def main():
 
     def build():
         try:
-            build_all([tile_composite.build, fused_mlp.build, gather_sum.build, native_build])
+            build_all([tile_composite.build, fused_mlp.build, gather_sum.build, native_build,
+                       jpeg.get_lib])
         except BaseException as e:  # re-raised below, after the join
             build_error.append(e)
         build_s.append(time.time() - build_t0)
@@ -3137,6 +3373,7 @@ def main():
         trunk_ptxas=repr(ptxas_summary(_build.build_logs, "fused_mlp")),
         gather_ptxas=repr(ptxas_summary(_build.build_logs, "gather_sum")),
         native=repr(native.summary()), native_built_in_this_run=native.build_log is not None,
+        jpeg=repr(jpeg.summary()),
         gxx=repr(subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
                  .splitlines()[0]),
     )
@@ -3275,12 +3512,23 @@ def main():
         except BaseException as e:  # re-raised below, after the join
             tt_error.append(e)
 
-    fleets = [threading.Thread(target=tt_fleet), threading.Thread(target=syn_fleet)]
+    jpeg_capture = []
+
+    def jpeg_train():
+        try:
+            jpeg_capture.extend(llff_jpeg_train())
+        except BaseException as e:  # re-raised below, after the join
+            tt_error.append(e)
+
+    fleets = [threading.Thread(target=tt_fleet), threading.Thread(target=syn_fleet),
+              threading.Thread(target=jpeg_train)]
     for th in fleets:
         th.start()
-    # The LLFF and view-conditioned paths run here meanwhile: their phases
-    # report quality and seconds, not device times, and the fleets' stages
-    # are process starts and host work with little on the card.
+    # The LLFF and view-conditioned paths run here meanwhile, and phase 38's
+    # capture and train CLI on a third thread: their phases report quality
+    # and seconds, not device times, and the fleets' stages are process
+    # starts and host work with little on the card. Phase 38's one-frame
+    # decode waits for a quiet host, after the join.
     try:
         with kernel_switches(False):
             llff_main_path()
@@ -3290,6 +3538,7 @@ def main():
             th.join()
     if tt_error:
         raise tt_error[0]
+    llff_jpeg_decode(*jpeg_capture)
     torch.cuda.empty_cache()
     fleet_tree_march(fleet_trees["SH16"])
     sg_tiles(tree)

@@ -6,17 +6,22 @@ numpy; the renderer moves what it needs to its device. Under a process
 group each rank's train split serves batch_size // data rays (the JAX
 package's per-host split; `data` is the world size without tensor
 parallelism), from a sampler seeded with the rank's data index. Differences
-from the JAX package: no prefetch thread
-(batches are built on demand), a seeded batch sampler, and images are read
-with the port's own PNG decoder (`utils/png.py`) and downsampled with a
-numpy k x k box mean (`_box_mean`, cv2's INTER_AREA at an integer factor),
-so no loader needs PIL or cv2. Frames must be PNG: a JPEG (or any other
-format) raises a ValueError naming the file, since the GPU host has no
-JPEG decoder (ROADMAP.md A).
+from the JAX package: no prefetch thread (batches are built on demand), a
+seeded batch sampler, and no PIL or cv2. Frames are read by their
+signature, PNG through the port's own decoder (`utils/png.py`) and JPEG
+through its own (`utils/jpeg.py`), each giving the pixels PIL gives; any
+other file raises a ValueError naming it. A split's frames are decoded on a
+thread pool, in file order, and a loader that read a JPEG prints one
+`jpeg:` line naming the decoder's path. Downsampling is `_resize_area`, a
+numpy port of cv2's INTER_AREA at any ratio, where the JAX package calls
+cv2.
 """
 
 import json
+import math
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from os import path
 
 import numpy as np
@@ -25,6 +30,7 @@ from plenoctree_tpu_torch.data import poses as pose_utils
 from plenoctree_tpu_torch.data.rays import Rays, convert_to_ndc, generate_rays, namedtuple_map
 from plenoctree_tpu_torch.data.synthetic import render_synthetic_scene
 from plenoctree_tpu_torch.parallel import mesh as mesh_lib
+from plenoctree_tpu_torch.utils import jpeg
 from plenoctree_tpu_torch.utils.png import is_png, read_png
 
 
@@ -37,14 +43,76 @@ def get_dataset(split, args):
     return dataset_dict[args.dataset](split, args)
 
 
-def _box_mean(image, k):
-    """The mean of each k x k pixel block, in float64, cast back:
-    cv2.resize(image, (w // k, h // k), interpolation=cv2.INTER_AREA) when
-    k divides the size (the loaders' --factor k); a remainder of rows or
-    columns is dropped."""
-    h, w = image.shape[0] // k, image.shape[1] // k
-    blocks = image[: k * h, : k * w].reshape(h, k, w, k, *image.shape[2:])
-    return blocks.mean(axis=(1, 3), dtype=np.float64).astype(image.dtype)
+def _area_table(ssize, dsize):
+    """cv2's computeResizeAreaTab: (destination, source, weight) entries in
+    the order cv2 accumulates them (weights float32, as cv2 stores them)."""
+    scale = 1.0 / (dsize / ssize)
+    dst, src, weight = [], [], []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            dst.append(dx), src.append(sx1 - 1), weight.append((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            dst.append(dx), src.append(sx), weight.append(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            dst.append(dx), src.append(sx2), weight.append(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return np.array(dst), np.array(src), np.array(weight, np.float32)
+
+
+def _weighted_sums(x, n, table):
+    """out[d] = the float32 sum, in table order, of w * x[s] over d's
+    entries along axis 0 (cv2's resizeArea_ row and column passes)."""
+    dst, src, w = table
+    out = np.zeros((n,) + x.shape[1:], np.float32)
+    nth = np.arange(dst.size) - np.searchsorted(dst, dst)  # entry's place within its run
+    for k in range(int(nth.max()) + 1):
+        sel = nth == k
+        wk = w[sel].reshape((-1,) + (1,) * (x.ndim - 1))
+        out[dst[sel]] += x[src[sel]] * wk
+    return out
+
+
+def _resize_area(image, new_w, new_h):
+    """cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_AREA) of a
+    float32 [H, W] or [H, W, C] image, downscaling, with cv2's float32
+    summation order: its integer-scale path where both scales are integers
+    (resizeAreaFast: a block's samples row by row, four at a time, times
+    1/area; at 2x2 with 1 or 4 channels its 4-lane SIMD pairs, which give
+    ((a + b) + (c + d)) * 0.25, on every whole group of 4 outputs of a
+    row), else its general path (computeResizeAreaTab's fractional cell
+    weights with their 1e-3 thresholds: each row's columns summed, then the
+    rows)."""
+    image = np.asarray(image, np.float32)
+    h, w = image.shape[:2]
+    if new_w > w or new_h > h or new_w < 1 or new_h < 1:
+        raise ValueError(f"_resize_area downscales; {w}x{h} -> {new_w}x{new_h}")
+    sx, sy = 1.0 / (new_w / w), 1.0 / (new_h / h)
+    kx, ky = round(sx), round(sy)
+    if abs(sx - kx) < np.finfo(np.float64).eps and abs(sy - ky) < np.finfo(np.float64).eps:
+        blocks = image[: ky * new_h, : kx * new_w].reshape(new_h, ky, new_w, kx,
+                                                           *image.shape[2:])
+        vals = [blocks[:, y, :, x] for y in range(ky) for x in range(kx)]
+        total = np.zeros_like(vals[0])
+        k = 0
+        while k + 4 <= len(vals):
+            total += ((vals[k] + vals[k + 1]) + vals[k + 2]) + vals[k + 3]
+            k += 4
+        for v in vals[k:]:
+            total += v
+        out = total * (np.float32(1) / np.float32(len(vals)))
+        cn = 1 if image.ndim == 2 else image.shape[2]
+        if (kx, ky) == (2, 2) and cn in (1, 4):
+            simd = ((vals[0] + vals[1]) + (vals[2] + vals[3])) * np.float32(0.25)
+            cols = new_w if cn == 4 else new_w - new_w % 4
+            out[:, :cols] = simd[:, :cols]
+        return out
+    cols = _weighted_sums(np.moveaxis(image, 1, 0), new_w, _area_table(w, new_w))
+    return _weighted_sums(np.moveaxis(cols, 0, 1), new_h, _area_table(h, new_h))
 
 
 class Dataset:
@@ -125,7 +193,7 @@ class Dataset:
         }
 
     def _generate_rays(self):
-        self.rays = generate_rays(self.w, self.h, self.focal, self.camtoworlds)
+        self.rays = _camera_rays(self.w, self.h, self.focal, self.camtoworlds)
 
     # The scene's bbox (NSVF bbox.txt: min xyz, max xyz, voxel size), None
     # elsewhere; the extract CLI's --bbox_from_data reads it.
@@ -133,13 +201,63 @@ class Dataset:
 
 
 def _load_image(fname):
-    if not is_png(fname):
-        raise ValueError(
-            f"{fname}: not a PNG file; the port reads PNG frames only (the GPU host has "
-            "no JPEG decoder; ROADMAP.md A lists a numpy baseline-JPEG reader as open). "
-            "Convert the frames to PNG, or use a folder of PNGs (images_4/, images_8/)."
-        )
-    return read_png(fname).astype(np.float32) / 255.0
+    """A frame as float32 in [0, 1], as np.array(Image.open(f)) / 255
+    gives it: [H, W] greyscale, [H, W, C] otherwise."""
+    if is_png(fname):
+        image = read_png(fname)
+        if image.shape[-1] == 1:
+            image = image[..., 0]
+    elif jpeg.is_jpeg(fname):
+        image = jpeg.read_jpeg(fname)
+    else:
+        raise ValueError(f"{fname}: neither PNG nor JPEG; the port reads PNG and JPEG frames")
+    return image.astype(np.float32) / 255.0
+
+
+def _load_images(fnames):
+    """_load_image of each file, on a thread pool (the C++ scan decoder and
+    numpy release the GIL), in file order; prints one `jpeg:` line when any
+    frame was a JPEG."""
+    before = dict(jpeg.timing)
+    workers = max(1, min(len(fnames), os.cpu_count() or 1, 8))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        images = list(pool.map(_load_image, fnames))
+    wall = time.perf_counter() - t0
+    files = jpeg.timing["files"] - before["files"]
+    if files:
+        nbytes = jpeg.timing["bytes"] - before["bytes"]
+        pixels = jpeg.timing["pixels"] - before["pixels"]
+        entropy = jpeg.timing["entropy_s"] - before["entropy_s"]
+        rest = jpeg.timing["rest_s"] - before["rest_s"]
+        print(f"jpeg: {files} frames, {nbytes} bytes, {8 * nbytes / pixels:.3f} bits/pixel, "
+              f"{wall:.3f} s on {workers} threads (entropy decoding {entropy:.3f} s, the rest "
+              f"{rest:.3f} s, summed over threads), {jpeg.summary()}", flush=True)
+    return images
+
+
+def _camera_rays(w, h, focal, camtoworlds, post=None):
+    """generate_rays (then `post`) one camera at a time on a thread pool,
+    each written into its slice of one array per field: bitwise the batched
+    call, since every ray depends on its own camera alone, in a fraction of
+    its time on a full-resolution capture (numpy's stacked 3x3 matmuls and
+    the NDC's elementwise passes release the GIL)."""
+    n = camtoworlds.shape[0]
+
+    def one(i):
+        rays = generate_rays(w, h, focal, camtoworlds[i:i + 1])
+        return rays if post is None else post(rays)
+
+    if n <= 1:
+        return one(0) if n else generate_rays(w, h, focal, camtoworlds)
+    out = None
+    with ThreadPoolExecutor(max(1, min(n, os.cpu_count() or 1, 8))) as pool:
+        for i, rays in enumerate(pool.map(one, range(n))):
+            if out is None:
+                out = Rays(*(np.empty((n,) + r.shape[1:], r.dtype) for r in rays))
+            for dst, src in zip(out, rays):
+                dst[i] = src[0]
+    return out
 
 
 def _composite_white(image, white_bkgd):
@@ -158,16 +276,14 @@ class Blender(Dataset):
             path.join(args.data_dir, f"transforms_{self.split}.json"), "r"
         ) as fp:
             meta = json.load(fp)
+        if args.factor > 0 and args.factor != 2:
+            raise ValueError(f"Blender dataset only supports factor=0 or 2, {args.factor} set.")
+        frames = _load_images([os.path.join(args.data_dir, frame["file_path"] + ".png")
+                               for frame in meta["frames"]])
         images, cams = [], []
-        for frame in meta["frames"]:
-            fname = os.path.join(args.data_dir, frame["file_path"] + ".png")
-            image = _load_image(fname)
+        for frame, image in zip(meta["frames"], frames):
             if args.factor == 2:
-                image = _box_mean(image, 2)
-            elif args.factor > 0:
-                raise ValueError(
-                    f"Blender dataset only supports factor=0 or 2, {args.factor} set."
-                )
+                image = _resize_area(image, image.shape[1] // 2, image.shape[0] // 2)
             cams.append(frame["transform_matrix"])
             images.append(_composite_white(image, args.white_bkgd))
         self.images = np.stack(images, axis=0)
@@ -195,25 +311,31 @@ class LLFF(Dataset):
             for f in sorted(os.listdir(imgdir))
             if f.lower().endswith(("jpg", "png"))
         ]
-        images = np.stack([_load_image(f) for f in imgfiles], axis=-1)
+        # Every llffhold-th frame is the test split. Only the split's frames
+        # are decoded (the JAX loader decodes all of them for each split).
+        n_images = len(imgfiles)
+        i_test = np.arange(n_images)[:: args.llffhold]
+        indices = (
+            i_test
+            if self.split != "train"
+            else np.array([i for i in np.arange(n_images) if i not in i_test])
+        )
+        images = np.stack(_load_images([imgfiles[i] for i in indices]), axis=0)
 
         with open(path.join(data_dir, "poses_bounds.npy"), "rb") as fp:
             poses_arr = np.load(fp)
         poses = poses_arr[:, :-2].reshape([-1, 3, 5]).transpose([1, 2, 0])
         bds = poses_arr[:, -2:].transpose([1, 0])
-        if poses.shape[-1] != images.shape[-1]:
-            raise RuntimeError(
-                f"Mismatch between imgs {images.shape[-1]} and poses {poses.shape[-1]}"
-            )
+        if poses.shape[-1] != n_images:
+            raise RuntimeError(f"Mismatch between imgs {n_images} and poses {poses.shape[-1]}")
 
         # Correct intrinsics for downsampling.
-        poses[:2, 4, :] = np.array(images.shape[:2]).reshape([2, 1])
+        poses[:2, 4, :] = np.array(images.shape[1:3]).reshape([2, 1])
         poses[2, 4, :] = poses[2, 4, :] / factor
 
         # [down, right, backwards] -> [right, up, backwards] axis flip.
         poses = np.concatenate([poses[:, 1:2, :], -poses[:, 0:1, :], poses[:, 2:, :]], 1)
         poses = np.moveaxis(poses, -1, 0).astype(np.float32)
-        images = np.moveaxis(images, -1, 0)
         bds = np.moveaxis(bds, -1, 0).astype(np.float32)
 
         scale = 1.0 / (bds.min() * 0.75)
@@ -233,13 +355,6 @@ class LLFF(Dataset):
         if not args.spherify and self.split == "test":
             self.render_poses = pose_utils.spiral_path(poses, bds)
 
-        i_test = np.arange(images.shape[0])[:: args.llffhold]
-        indices = (
-            i_test
-            if self.split != "train"
-            else np.array([i for i in np.arange(images.shape[0]) if i not in i_test])
-        )
-        images = images[indices]
         poses = poses[indices]
 
         self.images = images
@@ -250,26 +365,43 @@ class LLFF(Dataset):
         self.n_examples = self.render_poses.shape[0] if args.render_path else images.shape[0]
 
     def _generate_rays(self):
-        """NDC rays for forward-facing captures; on the test split also the
-        render path's rays."""
-        if self.split == "test":
-            n_render_poses = self.render_poses.shape[0]
-            self.camtoworlds = np.concatenate([self.render_poses, self.camtoworlds], axis=0)
-        super()._generate_rays()
-        if not self.spherify:
-            ndc_o, ndc_d = convert_to_ndc(
-                self.rays.origins, self.rays.directions, self.focal, self.w, self.h
-            )
-            self.rays = Rays(
-                origins=ndc_o.astype(np.float32),
-                directions=ndc_d.astype(np.float32),
-                viewdirs=self.rays.viewdirs,
-            )
-        if self.split == "test":
-            self.camtoworlds = self.camtoworlds[n_render_poses:]
-            split0, split1 = zip(*[np.split(r, [n_render_poses], 0) for r in self.rays])
-            self.render_rays = Rays(*split0)
-            self.rays = Rays(*split1)
+        """NDC rays for forward-facing captures, one camera a thread. The
+        test split's render
+        path gets its rays when they are read: `render_rays` (every pose,
+        made once) or, under --render_path, one pose per batch. The JAX
+        loader makes them at load beside the test views' (its 120 poses
+        hold 53 GB of rays at 4032x3024); a pose's rays are the same
+        either way, bitwise."""
+        self.rays = _camera_rays(self.w, self.h, self.focal, self.camtoworlds, self._ndc)
+
+    def _ndc(self, rays):
+        if self.spherify:
+            return rays
+        ndc_o, ndc_d = convert_to_ndc(rays.origins, rays.directions, self.focal, self.w, self.h)
+        return Rays(origins=ndc_o.astype(np.float32), directions=ndc_d.astype(np.float32),
+                    viewdirs=rays.viewdirs)
+
+    def _path_rays(self, poses):
+        return self._ndc(generate_rays(self.w, self.h, self.focal, poses))
+
+    _render_rays = None
+
+    @property
+    def render_rays(self):
+        """The render path's rays, [poses, H, W, 3] each (test split)."""
+        if self._render_rays is None:
+            self._render_rays = self._path_rays(self.render_poses)
+        return self._render_rays
+
+    def _next_test(self):
+        if not self.render_path:
+            return super()._next_test()
+        idx = self.it
+        self.it = (self.it + 1) % self.n_examples
+        if self._render_rays is not None:
+            return {"rays": namedtuple_map(lambda r: r[idx], self._render_rays)}
+        return {"rays": namedtuple_map(lambda r: r[0],
+                                       self._path_rays(self.render_poses[idx:idx + 1]))}
 
 
 class NSVF(Dataset):
@@ -302,13 +434,14 @@ class NSVF(Dataset):
                 f"for the {self.split} split"
             )
         cam_trans = np.diag(np.array([1, -1, -1, 1], dtype=np.float32))
+        frames = _load_images([path.join(data_dir, "rgb", f) for f in img_files])
         images, cams = [], []
-        for img_fname, pose_fname in zip(img_files, pose_files):
-            image = _load_image(path.join(data_dir, "rgb", img_fname))
+        for image, pose_fname in zip(frames, pose_files):
             cams.append(np.loadtxt(path.join(data_dir, "pose", pose_fname)) @ cam_trans)
             image = _composite_white(image, args.white_bkgd)
             if args.factor > 1:
-                image = _box_mean(image, args.factor)
+                image = _resize_area(image, image.shape[1] // args.factor,
+                                     image.shape[0] // args.factor)
             images.append(image)
         self.images = np.stack(images, axis=0)
         self.n_examples, self.h, self.w = self.images.shape[:3]

@@ -1,11 +1,15 @@
 """PNG reading and writing with the standard library and numpy alone.
 
 The machine that runs the port on the GPU has no PIL, imageio or cv2, so
-the blender loader and the eval CLI read and write images through this
-module. `read_png` takes the 8-bit, non-interlaced greyscale, grey+alpha,
-RGB and RGBA files that Blender and PIL write, with any of the five row
-filters; it refuses other bit depths, palettes and interlacing. `write_png`
-writes 8-bit greyscale, RGB or RGBA with no row filter.
+the loaders and the eval CLI read and write images through this module.
+`read_png` gives what `np.array(Image.open(f))` gives for the files it
+takes: 8-bit greyscale, grey+alpha, RGB and RGBA; 16-bit RGB and RGBA as
+8-bit, each sample's high byte (PIL's "RGB" / "RGBA" modes), and 16-bit
+grey+alpha as 8-bit RGBA (grey repeated, as PIL converts it); with any of
+the five row filters, interlaced (Adam7) or not. It refuses what PIL
+gives in another form: 16-bit greyscale (PIL's "I;16", uint16), palettes
+(PIL's "P": indices) and bit depths under 8. `write_png` writes 8-bit
+greyscale, RGB or RGBA with no row filter.
 """
 
 import struct
@@ -14,7 +18,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # colour type -> channels (8-bit samples)
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # colour type -> channels
 
 
 def _chunks(data):
@@ -59,8 +63,30 @@ def is_png(path):
         return f.read(len(_SIGNATURE)) == _SIGNATURE
 
 
+# Adam7: (first column, first row, column step, row step) of each pass.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _decode_image(path, raw, pos, h, w, nbytes):
+    """The filtered scanlines of an h x w (sub)image at raw[pos:] -> (uint8
+    [h, w, nbytes], the position after it); a filter byte starts each row,
+    and the filters see a pixel as its nbytes bytes."""
+    size = h * (1 + w * nbytes)
+    if pos + size > raw.size:
+        raise ValueError(f"{path}: image data has {raw.size} bytes, want {pos + size} or more")
+    rows = raw[pos:pos + size].reshape(h, 1 + w * nbytes)
+    filt = rows[:, 0].astype(np.int64)
+    if filt.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown PNG row filter {int(filt.max())}")
+    pixels = rows[:, 1:].reshape(h, w, nbytes).astype(np.int32)
+    if not filt.any():
+        return pixels.astype(np.uint8), pos + size
+    return _unfilter(pixels, filt, h, w, nbytes), pos + size
+
+
 def read_png(path):
-    """An 8-bit PNG as a uint8 array [H, W, C] (C = 1, 2, 3 or 4)."""
+    """A PNG as a uint8 array [H, W, C] (C = 1, 2, 3 or 4), as PIL reads it."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -74,24 +100,36 @@ def read_png(path):
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG; only 8-bit samples are supported")
+    if ctype == 3:
+        raise ValueError(f"{path}: PNG colour type 3 (palette) is not supported")
     if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype} (palette) is not supported")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
+        raise ValueError(f"{path}: unknown PNG colour type {ctype}")
+    if depth == 16 and ctype == 0:
+        raise ValueError(f"{path}: 16-bit greyscale PNG is not supported (PIL reads it as "
+                         "uint16 'I;16')")
+    if depth not in (8, 16):
+        raise ValueError(f"{path}: {depth}-bit PNG; only 8- and 16-bit samples are supported")
+    if interlace > 1:
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
     c = _CHANNELS[ctype]
+    nbytes = c * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * c):
-        raise ValueError(f"{path}: image data has {raw.size} bytes, want {h * (1 + w * c)}")
-    raw = raw.reshape(h, 1 + w * c)
-    filt = raw[:, 0].astype(np.int64)
-    if filt.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown PNG row filter {int(filt.max())}")
-    pixels = raw[:, 1:].reshape(h, w, c).astype(np.int32)
-    if not filt.any():
-        return pixels.astype(np.uint8)
-    return _unfilter(pixels, filt, h, w, c)
+    if not interlace:
+        pixels, end = _decode_image(path, raw, 0, h, w, nbytes)
+    else:
+        pixels, end = np.zeros((h, w, nbytes), np.uint8), 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw and ph:
+                sub, end = _decode_image(path, raw, end, ph, pw, nbytes)
+                pixels[y0::dy, x0::dx] = sub
+    if end != raw.size:
+        raise ValueError(f"{path}: image data has {raw.size} bytes, want {end}")
+    if depth == 16:
+        pixels = pixels[..., 0::2]  # each sample's high byte
+        if ctype == 4:  # grey + alpha -> RGBA
+            pixels = pixels[..., [0, 0, 0, 1]]
+    return np.ascontiguousarray(pixels)
 
 
 def write_png(path, u8):

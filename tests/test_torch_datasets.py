@@ -1,6 +1,6 @@
-"""The NSVF and LLFF loaders, the LLFF pose helpers, the fixture writers
-and the integer-factor box mean: the port against the JAX package (and PIL,
-cv2) on the CPU.
+"""The NSVF and LLFF loaders (PNG and JPEG frames), the LLFF pose
+helpers, the fixture writers and the area resize: the port against the JAX
+package (and PIL, cv2) on the CPU.
 
 Fixtures are written by both packages' writers (the port's through
 utils/png.py, the JAX package's through PIL) at small sizes; the loaders
@@ -21,7 +21,7 @@ from plenoctree_tpu.data import synthetic as jsynthetic
 from plenoctree_tpu.utils import config as jconfig
 from plenoctree_tpu_torch.data import poses as tposes
 from plenoctree_tpu_torch.data import synthetic as tsynthetic
-from plenoctree_tpu_torch.data.datasets import _box_mean, get_dataset
+from plenoctree_tpu_torch.data.datasets import _resize_area, get_dataset
 from plenoctree_tpu_torch.utils import config as tconfig
 
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -156,32 +156,94 @@ def test_writers_match_the_jax_writers(scenes, kind):
                                           np.loadtxt(os.path.join(b, rel)))
 
 
-@pytest.mark.parametrize("k,shape", [(3, (18, 24, 3)), (4, (16, 12, 4)), (8, (32, 40, 3))])
-def test_box_mean_matches_cv2_inter_area(k, shape):
-    """The loaders' --factor k: cv2.resize(INTER_AREA) to (w // k, h // k)
-    at sizes k divides, within 1e-6."""
-    img = np.random.default_rng(k).random(shape, dtype=np.float32)
+@pytest.mark.parametrize("k,shape", [
+    (3, (18, 24, 3)), (4, (16, 12, 4)), (8, (32, 40, 3)),  # the factor divides the size
+    (2, (50, 67, 3)), (4, (23, 37, 3)), (16, (1080, 1920, 3)),  # it does not
+    (2, (50, 67, 4)), (4, (23, 37, 4)), (5, (48, 48, 3)), (2, (48, 64, 4)), (2, (49, 51)),
+])
+def test_resize_area_matches_cv2(k, shape):
+    """The loaders' --factor k: cv2.resize(INTER_AREA) to (w // k, h // k),
+    bitwise (cv2's float32 summation order mirrored): its integer-scale
+    path where k divides the size (the 2x2 SIMD sums at 1 and 4 channels),
+    its fractional-weight path where it does not (67x50 / 2, 37x23 / 4,
+    1920x1080 / 16: the parent's box mean dropped the remainder rows and
+    columns and was 0.39, 0.26 and 0.06 away)."""
+    img = np.random.default_rng(k * shape[0]).random(shape, dtype=np.float32)
     want = cv2.resize(img, (shape[1] // k, shape[0] // k), interpolation=cv2.INTER_AREA)
-    got = _box_mean(img, k)
+    got = _resize_area(img, shape[1] // k, shape[0] // k)
     assert got.shape == want.shape and got.dtype == np.float32
-    assert float(np.abs(got - want).max()) <= 1e-6
+    np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kind", ["nsvf", "llff"])
-def test_jpeg_frames_raise_naming_the_file(scenes, tmp_path, kind):
-    """A frame that is not a PNG raises a ValueError naming the file and
-    ROADMAP.md (the GPU host has no JPEG decoder); it is not skipped."""
+@pytest.fixture(scope="module")
+def nsvf48(tmp_path_factory):
+    root = tmp_path_factory.mktemp("nsvf48")
+    return {pkg: mod.write_nsvf_dataset(str(root / pkg), n_train=3, n_test=2, resolution=48)
+            for pkg, mod in (("port", tsynthetic), ("jax", jsynthetic))}
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_nsvf_loader_at_a_factor_that_does_not_divide(nsvf48, split):
+    """--factor 5 on 48x48 views (9x9, cv2's general INTER_AREA path):
+    images bitwise the JAX loader's, the focal divided by 5."""
+    kw = dict(dataset="nsvf", batch_size=8, factor=5)
+    port = get_dataset(split, tconfig.default_config(data_dir=nsvf48["port"], **kw))
+    ref = jax_get_dataset(split, jconfig.default_config(data_dir=nsvf48["jax"], **kw),
+                          prefetch=False)
+    assert (port.h, port.w) == (ref.h, ref.w) == (9, 9)
+    np.testing.assert_array_equal(port.images, ref.images)
+    np.testing.assert_allclose(port.focal, ref.focal, rtol=1e-7)
+    for a, b in zip(port.rays, ref.rays):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+def _as_jpeg(src, dst, kind):
+    """A copy of a fixture scene with every frame a JPEG written by PIL
+    (4:2:0, quality 90, restart intervals on every other frame)."""
     import shutil
 
-    d = str(tmp_path / kind)
-    shutil.copytree(scenes[kind, "port"], d)
-    folder = os.path.join(d, "rgb" if kind == "nsvf" else "images")
-    first = sorted(os.listdir(folder))[0]
-    jpg = os.path.join(folder, first[:-4] + ".jpg")
-    Image.open(os.path.join(folder, first)).convert("RGB").save(jpg, format="JPEG")
-    os.remove(os.path.join(folder, first))
-    cfg = tconfig.default_config(dataset=kind, data_dir=d, batch_size=8, factor=0, llffhold=3)
-    with pytest.raises(ValueError, match=r"\.jpg: not a PNG.*ROADMAP\.md"):
+    shutil.copytree(src, dst)
+    folder = os.path.join(dst, "rgb" if kind == "nsvf" else "images")
+    for i, name in enumerate(sorted(os.listdir(folder))):
+        png = os.path.join(folder, name)
+        Image.open(png).convert("RGB").save(png[:-4] + ".jpg", format="JPEG", quality=90,
+                                            **({"restart_marker_blocks": 1} if i % 2 else {}))
+        os.remove(png)
+    return dst
+
+
+@pytest.mark.parametrize("kind", ["nsvf", "llff", "llff_spherify"])
+def test_jpeg_frames_load_and_equal_the_jax_loaders(scenes, tmp_path, kind, capsys):
+    """Every frame a JPEG: the port's loaders (utils/jpeg.py) read the
+    same images as the JAX loaders (PIL) and make the same rays, bitwise;
+    LLFF with NDC rays and spherified. One `jpeg:` line names the path."""
+    base = kind.split("_")[0]
+    d = _as_jpeg(scenes[base, "port"], str(tmp_path / kind), base)
+    kw = dict(dataset=base, data_dir=d, batch_size=8, factor=0, llffhold=3,
+              spherify=kind == "llff_spherify")
+    for split in ("train", "test"):
+        port = get_dataset(split, tconfig.default_config(**kw))
+        assert "jpeg:" in capsys.readouterr().out
+        ref = jax_get_dataset(split, jconfig.default_config(**kw), prefetch=False)
+        assert port.images.dtype == ref.images.dtype == np.float32
+        np.testing.assert_array_equal(port.images, ref.images)
+        for a, b in zip(port.rays, ref.rays):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        if split == "test" and base == "llff":
+            for a, b in zip(port.render_rays, ref.render_rays):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_cmyk_jpeg_frame_raises_naming_the_file(scenes, tmp_path):
+    """A 4-component (CMYK) JPEG frame raises a ValueError naming it (PIL
+    gives 4 channels there, which the JAX loader takes for RGBA)."""
+    d = _as_jpeg(scenes["nsvf", "port"], str(tmp_path / "cmyk"), "nsvf")
+    first = sorted(os.listdir(os.path.join(d, "rgb")))[0]
+    path = os.path.join(d, "rgb", first)
+    Image.open(path).convert("CMYK").save(path, format="JPEG")
+    cfg = tconfig.default_config(dataset="nsvf", data_dir=d, batch_size=8, factor=0)
+    with pytest.raises(ValueError, match=rf"{first}: 4-component \(CMYK/YCCK\)"):
         get_dataset("train", cfg)
 
 
