@@ -1,0 +1,5 @@
+"""Host-side kernel and graph launch calls per training step (traced window)."""
+
+
+def read(v):
+    return v.summary.launches / v.units if v.units else None
