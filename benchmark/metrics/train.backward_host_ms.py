@@ -1,0 +1,8 @@
+"""Host ms a train step spends in autograd's backward: the `nerf.backward`
+spans' duration over the `nerf.step` spans."""
+
+from benchmark import spans
+
+
+def read(v):
+    return spans.host_ms_per_unit("nerf.step", "nerf.backward")

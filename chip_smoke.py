@@ -37,7 +37,9 @@ Phases, one line each with its wall time:
      --shard_devices 1`)
      in-process on the synthetic test views at 200x200; its kernel launch
      count must be > 0;
-  6. serving: a 24-pose 800x800 orbit, every frame timed (regrowth included);
+  6. serving: a 24-pose 800x800 orbit, every frame timed (regrowth included),
+     then two frames under a host-only profiler: the port's spans per frame
+     (utils/tracing.py) and the pieces handed to kernel #3;
   7. trunk kernel vs plain: the fused trunk's forward and backward kernels
      against their plain versions at the fine MLP's bench shape (786,432 x
      63 -> 8x256 -> 1 + 48, seeded glorot weights and N(0, 0.05) biases,
@@ -71,8 +73,9 @@ Phases, one line each with its wall time:
      march frame of that tree, timed;
  10. train throughput: `plenoctree_tpu_torch.bench` in-process at batch
      4096, with the kernel switches off and then on: rays/s, ms/step, peak
-     memory, and the trunk kernels' share of device time and the idle
-     share from one torch.profiler window;
+     memory, and the trunk kernels' share of device time and the port's
+     spans per step (utils/tracing.py: one step, the rows handed to the
+     trunk) from one torch.profiler window;
  11. tile bwd kernel vs plain: on the depth-7 tree in exact mode (the
      optimizer's keep_all index), one 800x800 pose: the tile kernel's
      exact-mode forward against composite_tiles_reference (KERNEL_ATOL),
@@ -985,18 +988,21 @@ def train_throughput(switches_on):
     t0 = time.time()
     with kernel_switches(switches_on):
         res = bench.run(BENCH_BATCH, BENCH_STEPS, profile_window=3)
+    spans = res["spans_per_step"]
     phase(
         f"train throughput (switches {'on' if switches_on else 'off'})", t0,
         posenc_in_kernel=res["posenc_in_kernel"], sh_in_kernel=res["sh_in_kernel"],
         rays_per_sec=res["rays_per_sec"], ms_per_step=res["ms_per_step"],
         peak_mem_gib=res["peak_mem_gib"], device_ms_per_step=res["device_ms_per_step"],
         trunk_kernel_ms_per_step=res["trunk_kernel_ms_per_step"],
-        trunk_share=res["trunk_share"], idle_share=res["idle_share"],
-        top_kernels=json.dumps(res["top_kernels"]),
-        vs_baseline=res["rays_per_sec"] / bench.BASELINE_RAYS_PER_SEC,
+        trunk_share=res["trunk_share"], top_kernels=json.dumps(res["top_kernels"]),
+        spans_ms=json.dumps({n: round(v["total_ms"], 3) for n, v in spans.items()}),
     )
     if not (math.isfinite(res["rays_per_sec"]) and math.isfinite(res["final_psnr"])):
         raise RuntimeError(f"bad bench result {res}")
+    rows = BENCH_BATCH * (64 + 192) + 10000  # the bench config's samples and points a step
+    if spans["nerf.step"]["count"] != 1 or spans["nerf.trunk"]["counts"]["rows"] != rows:
+        raise RuntimeError(f"the traced steps' spans are off (rows {rows} a step): {spans}")
     if (res["posenc_in_kernel"], res["sh_in_kernel"]) != (switches_on, switches_on):
         raise RuntimeError(f"the bench ran with other switches: {res}")
     return res
@@ -1191,14 +1197,17 @@ def device_split(prof, kernels, ops, n_steps):
     `kernels` (kernel-name substrings) and of `ops` (the device time of the
     kernels an op launched), the rest as "other"; and the top kernels as
     (ms per step, name, launches per step)."""
+    from plenoctree_tpu_torch.utils import tracing
+
     ms = dict.fromkeys([*kernels, *ops], 0.0)
     total, top = 0.0, []
+    spans = set(tracing.window()["by_name"])  # the port's spans in the window
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
         if t is None:
             t = getattr(ev, "cuda_time_total", 0.0)
         t = t / 1e3 / n_steps
-        if ev.device_type.name == "CUDA" and ev.key in ops.values():
+        if ev.device_type.name == "CUDA" and (ev.key in ops.values() or ev.key in spans):
             continue  # a profiler range's span on the device, not a kernel
         if ev.device_type.name == "CUDA" and t:
             total += t
@@ -1216,8 +1225,11 @@ def device_split(prof, kernels, ops, n_steps):
 
 
 def optimize_throughput(opt, ti):
-    """Phase 12: ms per optimizer step at 800x800, and its split."""
+    """Phase 12: ms per optimizer step at 800x800, its split, and the
+    port's spans per step."""
     from torch.profiler import ProfilerActivity, profile
+
+    from plenoctree_tpu_torch.utils import tracing
 
     from plenoctree_tpu_torch.data.poses import orbit_pose
 
@@ -1265,6 +1277,7 @@ def optimize_throughput(opt, ti):
         torch.cuda.synchronize()
     split, top = device_split(prof, OPT_STEP_KERNELS, OPT_STEP_OPS, OPT_PROFILE_STEPS)
     device_ms = sum(split.values())
+    spans = tracing.per_unit(tracing.window()["by_name"], OPT_PROFILE_STEPS)
     idx = opt.r.index
     inputs_ms = cuda_ms(lambda: ti(poses[0], idx["csr"], idx["base"], opt.r.extra_data,
                                    idx["blk_bbox"]), 5)
@@ -1274,9 +1287,13 @@ def optimize_throughput(opt, ti):
         device_ms_per_step=device_ms, device_split_ms=json.dumps(split),
         idle_share=1.0 - device_ms / step_med, tile_inputs_alone_ms=inputs_ms,
         top_kernels=json.dumps(top),
+        spans_ms=json.dumps({n: round(v["total_ms"], 3) for n, v in spans.items()}),
+        pieces_per_step=spans["tile.inputs"]["counts"]["pieces"],
     )
     if not all(math.isfinite(v) for v in step_ms):
         raise RuntimeError("bad optimizer step times")
+    if spans["tile_opt.step"]["count"] != 1 or spans["tile.composite_bwd"]["count"] != 1:
+        raise RuntimeError(f"the traced optimizer steps' spans are off: {spans}")
     if not all(v > 0 for v in split.values()):
         raise RuntimeError(f"a group of the profiled step shows no device time: {split}")
     return step_med
@@ -3307,6 +3324,7 @@ def main():
     from plenoctree_tpu_torch.kernels import tile_composite
     from plenoctree_tpu_torch.octree import N3Tree
     from plenoctree_tpu_torch.octree.tile_render import TileRenderer
+    from plenoctree_tpu_torch.utils import tracing
 
     start = time.time()
     os.chdir(ROOT)
@@ -3455,11 +3473,20 @@ def main():
         if k == 0:
             served0 = img.astype(np.float64)  # phase 15's reference for the march
     peak = torch.cuda.max_memory_allocated(dev)
+    # The port's spans over two more frames (a host-only profiler window).
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for k in range(2):
+            server.render_persp(orbit_pose(2.0 * np.pi * (k + 0.5) / N_ORBIT), RES, RES, focal)
+    spans = tracing.per_unit(tracing.window()["by_name"], 2)
     phase(
         "serving", t0, frames=N_ORBIT, median_ms=float(np.median(frame_ms)),
         best_ms=float(np.min(frame_ms)), first_ms=frame_ms[0],
         peak_mem_gib=peak / 2**30, ccap=server.ccap, w1cap=server.w1cap, gpu=repr(smi),
+        spans_ms=json.dumps({n: round(v["total_ms"], 3) for n, v in spans.items()}),
+        pieces_per_frame=spans["tile.inputs"]["counts"]["pieces"],
     )
+    if spans["tile.frame"]["count"] != 1 or spans["tile.fetch"]["count"] < 1:
+        raise RuntimeError(f"the traced frames' spans are off: {spans}")
     del server, soa, p2, out_k, out_p
     ndc_serving(tree, renderer.index, smi)
     sharded_serving(tree, renderer.index, smi, tree_path)

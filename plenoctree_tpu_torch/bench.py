@@ -12,12 +12,8 @@ BENCH_STEPS; and the model's kernel switches PN_POSENC_IN_KERNEL=1 and
 PN_SH_IN_KERNEL=1 (the fused trunk's in-kernel posenc and SH decode),
 which the JSON line reports.
 
-Baseline: JaxNeRF on one V100 trains ~17,000 rays/s/GPU (bench.py's
-docstring); vs_baseline = rays_per_sec_per_chip / 17000.
-
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
-"posenc_in_kernel", "sh_in_kernel"}. It needs a CUDA device and fails
-without one.
+Prints ONE JSON line: {"metric", "value", "unit", "posenc_in_kernel",
+"sh_in_kernel"}. It needs a CUDA device and fails without one.
 """
 
 import json
@@ -26,8 +22,6 @@ import sys
 import time
 
 import torch
-
-BASELINE_RAYS_PER_SEC = 17000.0
 
 
 def switches():
@@ -53,7 +47,7 @@ def run(batch_size=4096, steps=100, profile_window=0):
     """Train 5 warm-up + `steps` steps on the bench config; returns a dict of
     rays/s, ms/step, peak device memory, the variant switches and (with
     profile_window > 0) the fused trunk kernels' share of device time over
-    that many extra steps, and the idle share 1 - device ms / ms per step."""
+    that many extra steps and the port's spans per step in them."""
     from plenoctree_tpu_torch import engine
     from plenoctree_tpu_torch.data import get_dataset
     from plenoctree_tpu_torch.models.nerf import get_model_state
@@ -86,24 +80,28 @@ def run(batch_size=4096, steps=100, profile_window=0):
     }
     if profile_window:
         out.update(_profile(train_step, state, batches, gen, profile_window))
-        out["idle_share"] = 1.0 - out["device_ms_per_step"] / out["ms_per_step"]
     return out
 
 
 def _profile(train_step, state, batches, gen, n_steps):
-    """Device time by kernel over n_steps steps (torch.profiler)."""
+    """Device time by kernel over n_steps steps (torch.profiler), and the
+    port's spans (utils/tracing.py) per step."""
     from torch.profiler import ProfilerActivity, profile
+
+    from plenoctree_tpu_torch.utils import tracing
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             state, _, _ = train_step(state, next(batches), gen)
         torch.cuda.synchronize()
+    spans = tracing.window()["by_name"]
     total, trunk, top = 0.0, 0.0, []
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
         if t is None:
             t = getattr(ev, "cuda_time_total", 0.0)
-        if ev.device_type.name != "CUDA" or not t:
+        # A span's range on the device (gpu_user_annotation) is not a kernel.
+        if ev.device_type.name != "CUDA" or not t or ev.key in spans:
             continue
         total += t
         if any(k in ev.key for k in ("fwd_kernel", "bwd_rows_kernel", "atb_kernel", "colsum")):
@@ -116,6 +114,7 @@ def _profile(train_step, state, batches, gen, n_steps):
         "trunk_kernel_ms_per_step": trunk / 1e3 / n_steps,
         "trunk_share": trunk / total if total else float("nan"),
         "top_kernels": [(k[:60], round(t / 1e3 / n_steps, 3), c // n_steps) for t, k, c in top[:12]],
+        "spans_per_step": tracing.per_unit(spans, n_steps),
     }
 
 
@@ -128,7 +127,6 @@ def main():
         "metric": "train_rays_per_sec_per_chip",
         "value": round(per_chip, 1),
         "unit": f"rays/s/chip (batch {batch_size}, 64c+128f, 8x256 SH16, {res['device']})",
-        "vs_baseline": round(per_chip / BASELINE_RAYS_PER_SEC, 3),
         **switches(),
     }))
     return 0

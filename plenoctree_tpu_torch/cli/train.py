@@ -11,7 +11,9 @@ render/), and timings.txt (step 0 at the start, then each render step;
 --profile_start_step S, torch.profiler (CPU, and CUDA on a GPU) records
 steps S to S + --profile_steps and writes a Chrome trace under
 `<train_dir>/profile/`, as the JAX CLI's jax.profiler hooks trace those
-steps.
+steps, and beside it `spans_steps_<S>_<E>.json`: the port's spans
+(utils/tracing.py) inside those steps by name, each with its count, total
+ms and self ms per step and its counts per step (rows handed to the trunk).
 
 Data parallel under `python -m torch.distributed.run` (the JAX CLI's
 jax.distributed run): one process per device, each rank on cuda:LOCAL_RANK
@@ -50,6 +52,7 @@ import argparse
 import contextlib
 import copy
 import gc
+import json
 import os
 import time
 
@@ -65,6 +68,7 @@ from plenoctree_tpu_torch.ops.metrics import compute_psnr, compute_ssim
 from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
 from plenoctree_tpu_torch.utils import config as config_lib
 from plenoctree_tpu_torch.utils import io as io_utils
+from plenoctree_tpu_torch.utils import tracing
 from plenoctree_tpu_torch.utils.lr import schedule_from_config
 from plenoctree_tpu_torch.utils.metrics_writer import MetricsWriter
 from plenoctree_tpu_torch.utils.png import write_png
@@ -99,7 +103,8 @@ def step_seed(seed, step, rank=0):
 class _Profile:
     """torch.profiler over steps [start, start + steps] (the JAX CLI starts
     its trace before step `start` and stops it after step start + steps),
-    exported as a Chrome trace into `<train_dir>/profile/`."""
+    exported as a Chrome trace into `<train_dir>/profile/`, with the spans
+    of those steps per step beside it."""
 
     def __init__(self, cfg, device):
         self.start, self.stop_at = cfg.profile_start_step, cfg.profile_start_step + cfg.profile_steps
@@ -128,6 +133,29 @@ class _Profile:
         self.prof.export_chrome_trace(path)
         self.prof = None
         print("* Profile written to", path)
+        path = os.path.join(self.dir, f"spans_steps_{self.start}_{step}.json")
+        with open(path, "w") as f:
+            json.dump(span_readout(tracing.window(), step - self.start + 1), f, indent=1)
+        print("* Spans written to", path)
+
+
+def span_readout(win, steps):
+    """{"steps", "per_step": {span name: {"count", "total_ms", "self_ms",
+    "counts"}}, "dropped"} of the spans inside the train steps (`nerf.step`
+    and what it holds; not an in-train render's) of a tracing.window() over
+    `steps` train steps."""
+    recs = {r["id"]: r for r in win["records"]}
+
+    def in_step(r):
+        while r is not None:
+            if r["name"] == "nerf.step":
+                return True
+            r = recs.get(r["parent"])
+        return False
+
+    by_name = tracing.summarize([r for r in win["records"] if in_step(r)])["by_name"]
+    return {"steps": steps, "per_step": tracing.per_unit(by_name, steps),
+            "dropped": win["dropped"]}
 
 
 def main(argv=None):

@@ -38,6 +38,7 @@ from plenoctree_tpu_torch.ops.metrics import compute_psnr
 from plenoctree_tpu_torch.parallel import mesh as mesh_lib
 from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
 from plenoctree_tpu_torch.utils import lr as lr_lib
+from plenoctree_tpu_torch.utils import tracing
 
 Stats = collections.namedtuple("Stats", ("loss", "psnr", "loss_c", "psnr_c", "weight_l2", "loss_sp"))
 
@@ -53,38 +54,43 @@ def sparsity_points(cfg, device, generator=None):
 def loss_and_grads(model, batch, cfg, generator=None, draws=None, sp_generator=None):
     """(Stats, {param name: gradient}) of the training loss at the model's
     current parameters; nothing is updated. The sparsity points come from
-    draws['sp_points'], else from sp_generator (else generator)."""
+    draws['sp_points'], else from sp_generator (else generator). Traced as
+    `nerf.forward` (the model's `nerf.coarse` / `nerf.fine`, `nerf.sparsity`,
+    the loss terms) and `nerf.backward`."""
     draws = draws or {}
     params = dict(model.named_parameters())
     rays = batch["rays"]
     pixels = batch["pixels"][..., :3]
-    ret = model(rays, cfg.randomized, generator, draws)
+    with tracing.span("nerf.forward"):
+        ret = model(rays, cfg.randomized, generator, draws)
 
-    zero = torch.zeros((), device=pixels.device)
-    if cfg.sparsity_weight > 0.0:
-        pts = draws.get("sp_points")
-        if pts is None:
-            pts = sparsity_points(cfg, pixels.device, sp_generator or generator)
-        _, sp_sigma = model.eval_points_raw(pts)
-        loss_sp = cfg.sparsity_weight * (
-            1.0 - torch.exp(-cfg.sparsity_length * torch.relu(sp_sigma)).mean()
-        )
-    else:
-        loss_sp = zero
+        zero = torch.zeros((), device=pixels.device)
+        if cfg.sparsity_weight > 0.0:
+            with tracing.span("nerf.sparsity"):
+                pts = draws.get("sp_points")
+                if pts is None:
+                    pts = sparsity_points(cfg, pixels.device, sp_generator or generator)
+                _, sp_sigma = model.eval_points_raw(pts)
+                loss_sp = cfg.sparsity_weight * (
+                    1.0 - torch.exp(-cfg.sparsity_length * torch.relu(sp_sigma)).mean()
+                )
+        else:
+            loss_sp = zero
 
-    loss = ((ret[-1][0] - pixels) ** 2).mean()
-    if len(ret) > 1:
-        loss_c = ((ret[0][0] - pixels) ** 2).mean()
-    else:
-        loss_c = zero
-    tp = getattr(model, "tp", None)
-    if tp is None:
-        n_params = sum(p.numel() for p in params.values())
-        weight_l2 = sum(torch.sum(p**2) for p in params.values()) / float(n_params)
-    else:  # the sharded columns' squares summed over the model axis
-        weight_l2 = tp.weight_l2(params)
-    total = loss + loss_c + loss_sp + cfg.weight_decay_mult * weight_l2
-    grads = torch.autograd.grad(total, list(params.values()))
+        loss = ((ret[-1][0] - pixels) ** 2).mean()
+        if len(ret) > 1:
+            loss_c = ((ret[0][0] - pixels) ** 2).mean()
+        else:
+            loss_c = zero
+        tp = getattr(model, "tp", None)
+        if tp is None:
+            n_params = sum(p.numel() for p in params.values())
+            weight_l2 = sum(torch.sum(p**2) for p in params.values()) / float(n_params)
+        else:  # the sharded columns' squares summed over the model axis
+            weight_l2 = tp.weight_l2(params)
+        total = loss + loss_c + loss_sp + cfg.weight_decay_mult * weight_l2
+    with tracing.span("nerf.backward"):
+        grads = torch.autograd.grad(total, list(params.values()))
     with torch.no_grad():
         stats = Stats(
             loss=loss.detach(), psnr=compute_psnr(loss.detach()), loss_c=loss_c.detach(),
@@ -110,21 +116,28 @@ def make_train_step(model, cfg, group=None):
     CPU; the median leaves out the first step's connection set-up). A
     model sharded over a model axis (parallel/partition.py) runs its own
     collectives inside the forward and backward;
-    `train_step.model_collectives_ms()` gives their median total per step."""
+    `train_step.model_collectives_ms()` gives their median total per step.
+
+    Traced as one `nerf.step` span (request id: the state's step) over
+    loss_and_grads' spans, `nerf.allreduce` (with a group) and
+    `nerf.update` (Adam)."""
     schedule = lr_lib.schedule_from_config(cfg)
     timings = collections.deque(maxlen=1000)  # the last steps' all-reduce times
 
     tp = getattr(model, "tp", None)
 
     def train_step(state, batch, generator=None, draws=None, sp_generator=None):
-        stats, grads = loss_and_grads(model, batch, cfg, generator, draws, sp_generator)
-        if tp is not None:
-            tp.timer.end_step()
-        if group is not None:
-            stats, grads = _reduce_over(group, cfg, stats, grads, timings)
-        lr = schedule(state.step)
-        ckpt_utils.adam_update(state, grads, lr)
-        state.step += 1
+        with tracing.span("nerf.step", request=state.step):
+            stats, grads = loss_and_grads(model, batch, cfg, generator, draws, sp_generator)
+            if tp is not None:
+                tp.timer.end_step()
+            if group is not None:
+                with tracing.span("nerf.allreduce"):
+                    stats, grads = _reduce_over(group, cfg, stats, grads, timings)
+            lr = schedule(state.step)
+            with tracing.span("nerf.update"):
+                ckpt_utils.adam_update(state, grads, lr)
+            state.step += 1
         return state, stats, lr
 
     def all_reduce_ms():

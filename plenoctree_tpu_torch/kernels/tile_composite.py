@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from plenoctree_tpu_torch.kernels._build import load_library
+from plenoctree_tpu_torch.utils import tracing
 
 launches = 0  # kernel launches by composite_tiles in this process
 bwd_launches = 0  # kernel launches by composite_tiles_bwd in this process
@@ -158,7 +159,7 @@ def composite_tiles(
 
     CUDA tensors launch the kernel (csrc/tile_composite.cu); CPU tensors run
     `composite_tiles_reference`. The kernel trusts phase 1's piece
-    descriptors to address rows inside `soa`.
+    descriptors to address rows inside `soa`. Traced as `tile.composite`.
     """
     global launches
     args = (meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis)
@@ -167,12 +168,13 @@ def composite_tiles(
         runrows=runrows, quantum=quantum, step_eps=step_eps,
         stop_thresh=stop_thresh, od_cap=od_cap,
     )
-    if soa.device.type == "cpu":
-        return composite_tiles_reference(*args, soa, **kw)
-    if soa.device.type != "cuda":
-        raise ValueError(f"composite_tiles: unsupported device {soa.device}")
-    _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
-    out = _launch_fwd(build(), args, soa, **kw)
+    with tracing.span("tile.composite"):
+        if soa.device.type == "cpu":
+            return composite_tiles_reference(*args, soa, **kw)
+        if soa.device.type != "cuda":
+            raise ValueError(f"composite_tiles: unsupported device {soa.device}")
+        _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
+        out = _launch_fwd(build(), args, soa, **kw)
     launches += 1
     return out
 
@@ -345,7 +347,8 @@ def composite_tiles_bwd(
     `tile_composite_bwd_kernel`); CPU tensors run
     `composite_tiles_bwd_reference`. The kernel adds each chunk's gradients
     into the result with float atomics, whose order changes from run to run:
-    two runs agree to f32 summation-order rounding, not bit for bit.
+    two runs agree to f32 summation-order rounding, not bit for bit. Traced
+    as `tile.composite_bwd` (under autograd, on its worker thread: no parent).
     """
     global bwd_launches
     args = (meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis)
@@ -353,26 +356,28 @@ def composite_tiles_bwd(
         fmt=fmt, basis_dim=basis_dim, n_channels=n_channels, sigma_row=sigma_row,
         runrows=runrows, quantum=quantum, step_eps=step_eps,
     )
-    if soa.device.type == "cpu":
-        return composite_tiles_bwd_reference(*args, soa, out, g, **kw)
-    if soa.device.type != "cuda":
-        raise ValueError(f"composite_tiles_bwd: unsupported device {soa.device}")
-    _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
-    T, rays = o.shape[0], o.shape[1]
-    for name, t in (("out", out), ("g", g)):
-        if t.device != soa.device or t.dtype != torch.float32 or tuple(t.shape) != (T, rays, 8):
+    with tracing.span("tile.composite_bwd"):
+        if soa.device.type == "cpu":
+            return composite_tiles_bwd_reference(*args, soa, out, g, **kw)
+        if soa.device.type != "cuda":
+            raise ValueError(f"composite_tiles_bwd: unsupported device {soa.device}")
+        _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
+        T, rays = o.shape[0], o.shape[1]
+        for name, t in (("out", out), ("g", g)):
+            if (t.device != soa.device or t.dtype != torch.float32
+                    or tuple(t.shape) != (T, rays, 8)):
+                raise ValueError(
+                    f"{name} must be a float32 [{T}, {rays}, 8] tensor on {soa.device}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                )
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if basis_dim > _MAX_BWD_BASIS or runrows > _MAX_BWD_RUNROWS:
             raise ValueError(
-                f"{name} must be a float32 [{T}, {rays}, 8] tensor on {soa.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                f"the CUDA tile backward takes basis_dim up to {_MAX_BWD_BASIS} and runrows up "
+                f"to {_MAX_BWD_RUNROWS}, got {basis_dim} and {runrows}"
             )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if basis_dim > _MAX_BWD_BASIS or runrows > _MAX_BWD_RUNROWS:
-        raise ValueError(
-            f"the CUDA tile backward takes basis_dim up to {_MAX_BWD_BASIS} and runrows up to "
-            f"{_MAX_BWD_RUNROWS}, got {basis_dim} and {runrows}"
-        )
-    gsoa = _launch_bwd(build(), args, soa, out, g, **kw)
+        gsoa = _launch_bwd(build(), args, soa, out, g, **kw)
     bwd_launches += 1
     return gsoa
 

@@ -57,6 +57,7 @@ from plenoctree_tpu_torch.ops.posenc import posenc
 from plenoctree_tpu_torch.ops.rendering import volumetric_rendering
 from plenoctree_tpu_torch.ops.sg import eval_sg
 from plenoctree_tpu_torch.ops.sh import eval_sh, sh_basis
+from plenoctree_tpu_torch.utils import tracing
 
 # flax.linen's element-wise activations, by name, with their defaults:
 # gelu is the tanh approximation there (approximate=True), leaky_relu's
@@ -187,27 +188,29 @@ class NerfModel(nn.Module):
         basis (fused path only): the per-ray SH basis [B, K]; the kernel
         then decodes the colour head in its epilogue and raw_rgb comes back
         as [B, S, C] (callers skip _decode_color). With PN_POSENC_IN_KERNEL=1
-        the kernels encode the raw points themselves.
+        the kernels encode the raw points themselves. Traced as `nerf.trunk`,
+        counting the B * S rows handed to the trunk.
         """
         b, s = samples.shape[0], samples.shape[1]
-        if not fused:
-            return mlp(posenc(samples, self.min_deg_point, self.max_deg_point,
-                              self.legacy_posenc_order), viewdirs_enc)
-        basis_rows = None
-        if basis is not None:
-            k = basis.shape[-1]
-            basis_rows = basis[:, None, :].expand(b, s, k).reshape(-1, k)
-        pe = None
-        if (self.min_deg_point < self.max_deg_point
-                and os.environ.get("PN_POSENC_IN_KERNEL", "0") == "1"):
-            pe = (self.min_deg_point, self.max_deg_point)
-            mlp_in = samples.reshape(-1, samples.shape[-1])
-        else:
-            enc = posenc(samples, self.min_deg_point, self.max_deg_point,
-                         self.legacy_posenc_order)
-            mlp_in = enc.reshape(-1, enc.shape[-1])
-        raw_rgb, raw_sigma = mlp.fused_enc(mlp_in, basis=basis_rows, posenc=pe)
-        return raw_rgb.reshape(b, s, -1), raw_sigma.reshape(b, s, -1)
+        with tracing.span("nerf.trunk", rows=b * s):
+            if not fused:
+                return mlp(posenc(samples, self.min_deg_point, self.max_deg_point,
+                                  self.legacy_posenc_order), viewdirs_enc)
+            basis_rows = None
+            if basis is not None:
+                k = basis.shape[-1]
+                basis_rows = basis[:, None, :].expand(b, s, k).reshape(-1, k)
+            pe = None
+            if (self.min_deg_point < self.max_deg_point
+                    and os.environ.get("PN_POSENC_IN_KERNEL", "0") == "1"):
+                pe = (self.min_deg_point, self.max_deg_point)
+                mlp_in = samples.reshape(-1, samples.shape[-1])
+            else:
+                enc = posenc(samples, self.min_deg_point, self.max_deg_point,
+                             self.legacy_posenc_order)
+                mlp_in = enc.reshape(-1, enc.shape[-1])
+            raw_rgb, raw_sigma = mlp.fused_enc(mlp_in, basis=basis_rows, posenc=pe)
+            return raw_rgb.reshape(b, s, -1), raw_sigma.reshape(b, s, -1)
 
     def _decode_color(self, raw_rgb, viewdirs):
         """SH / SG decode of [B, S, C*K] coefficients against viewdirs [B, 1, 3]."""
@@ -263,13 +266,11 @@ class NerfModel(nn.Module):
         return mlp.cross(enc, self._encode_viewdirs(viewdirs))
 
     def forward(self, rays, randomized, generator=None, draws=None, use_pallas=None):
-        """Render a batch of rays [B, 3]: [(rgb_c, disp_c, acc_c), (rgb, disp, acc)]."""
+        """Render a batch of rays [B, 3]: [(rgb_c, disp_c, acc_c), (rgb, disp, acc)].
+        Each level (sampling, trunk, decode, compositing) is traced as
+        `nerf.coarse` / `nerf.fine`."""
         d = draws or {}
         fused = self._use_fused(use_pallas)
-        z_vals, samples = ops_sampling.sample_along_rays(
-            rays.origins, rays.directions, self.num_coarse_samples, self.near, self.far,
-            randomized, self.lindisp, generator, d.get("t_rand"),
-        )
         viewdirs = rays.viewdirs[:, None]
         viewdirs_enc = self._encode_viewdirs(rays.viewdirs) if self.use_viewdirs else None
         # In-kernel SH decode (opt-in, PN_SH_IN_KERNEL=1): the basis is per
@@ -280,28 +281,34 @@ class NerfModel(nn.Module):
         ret = []
         weights = None
         for level, mlp in enumerate((self.MLP_0, self.MLP_1)):
-            if level == 1:
-                if self.num_fine_samples <= 0:
-                    break
-                z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-                z_vals, samples = ops_sampling.sample_pdf(
-                    z_vals_mid, weights[..., 1:-1], rays.origins, rays.directions, z_vals,
-                    self.num_fine_samples, randomized, generator, d.get("u"),
+            if level == 1 and self.num_fine_samples <= 0:
+                break
+            with tracing.span("nerf.fine" if level else "nerf.coarse"):
+                if level == 0:
+                    z_vals, samples = ops_sampling.sample_along_rays(
+                        rays.origins, rays.directions, self.num_coarse_samples, self.near,
+                        self.far, randomized, self.lindisp, generator, d.get("t_rand"),
+                    )
+                else:
+                    z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                    z_vals, samples = ops_sampling.sample_pdf(
+                        z_vals_mid, weights[..., 1:-1], rays.origins, rays.directions, z_vals,
+                        self.num_fine_samples, randomized, generator, d.get("u"),
+                    )
+                raw_rgb, raw_sigma = self._query_mlp(mlp, samples, fused, basis, viewdirs_enc)
+                if raw_sigma.shape[-1] == 1:
+                    raw_sigma = raw_sigma[..., 0]  # the [B, S] sigma form
+                raw_sigma = ops_sampling.add_gaussian_noise(
+                    raw_sigma, self.noise_std, randomized, generator,
+                    d.get("noise_c" if level == 0 else "noise_f"),
                 )
-            raw_rgb, raw_sigma = self._query_mlp(mlp, samples, fused, basis, viewdirs_enc)
-            if raw_sigma.shape[-1] == 1:
-                raw_sigma = raw_sigma[..., 0]  # the [B, S] sigma form
-            raw_sigma = ops_sampling.add_gaussian_noise(
-                raw_sigma, self.noise_std, randomized, generator,
-                d.get("noise_c" if level == 0 else "noise_f"),
-            )
-            if not decode_fused:
-                raw_rgb = self._decode_color(raw_rgb, viewdirs)
-            rgb = self.rgb_activation(raw_rgb)
-            sigma = self.sigma_activation(raw_sigma)
-            comp_rgb, disp, acc, weights = volumetric_rendering(
-                rgb, sigma, z_vals, rays.directions, white_bkgd=self.white_bkgd
-            )
+                if not decode_fused:
+                    raw_rgb = self._decode_color(raw_rgb, viewdirs)
+                rgb = self.rgb_activation(raw_rgb)
+                sigma = self.sigma_activation(raw_sigma)
+                comp_rgb, disp, acc, weights = volumetric_rendering(
+                    rgb, sigma, z_vals, rays.directions, white_bkgd=self.white_bkgd
+                )
             ret.append((comp_rgb, disp, acc))
         return ret
 

@@ -14,21 +14,21 @@ reads one scalar per image. This is the only optimizer for NDC (LLFF)
 scenes; the tile optimizer (octree/tile_opt.py) covers pinhole scenes.
 
 The march, the shade (forward and backward) and the update run inside
-profiler ranges ("pn_march", "pn_shade", "pn_update"), so a torch.profiler
-window can split a step's device time by part; the ranges cost nothing
-without a profiler.
+spans ("pn_march", "pn_shade", "pn_update"; utils/tracing.py), profiler
+ranges under a torch.profiler window, so it can split a step's device time
+by part. Without a profiler a span is a flag check (0.67 us on the CPU,
+torch 2.13); a bare record_function there cost 11.7 us a range.
 """
 
 import warnings
 
 import numpy as np
 import torch
-from torch.profiler import record_function
-
 from plenoctree_tpu_torch.data.rays import convert_to_ndc, generate_rays
 from plenoctree_tpu_torch.octree import march as march_lib
 from plenoctree_tpu_torch.octree import renderer as renderer_lib
 from plenoctree_tpu_torch.ops.metrics import compute_psnr
+from plenoctree_tpu_torch.utils import tracing
 from plenoctree_tpu_torch.utils.checkpoints import TrainState, adam_update
 
 _F32 = torch.float32
@@ -79,7 +79,7 @@ class TwoPhaseRenderer:
 
     def march(self, data, rp, n_rays):
         """March to completion under the current sigma (no gradient)."""
-        with record_function("pn_march"):
+        with tracing.span("pn_march"):
             tables = dict(self.tables, sigma=data.detach()[:, -1].contiguous())
             carry = march_lib.init_carry(rp, n_rays, self.K)
             return march_lib.march_while(
@@ -104,7 +104,7 @@ class TwoPhaseRenderer:
         """(sum of the masked squared error of the clamped shade of these
         contributor slots, its gradient w.r.t. data), device tensors."""
         leaf = data.detach().requires_grad_(True)
-        with torch.enable_grad(), record_function("pn_shade"):
+        with torch.enable_grad(), tracing.span("pn_shade"):
             rgb = march_lib.shade(
                 leaf, cells, dts, count, basis, self.fmt, self.basis_dim,
                 self.opts.background_brightness,
@@ -192,7 +192,7 @@ def make_update(data, use_sgd, sgd_momentum, lr):
 
     @torch.no_grad()
     def update(grad, denom):
-        with record_function("pn_update"):
+        with tracing.span("pn_update"):
             rule(grad / torch.tensor(denom, dtype=grad.dtype, device=grad.device))
 
     return update

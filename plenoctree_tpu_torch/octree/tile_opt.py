@@ -28,6 +28,7 @@ from plenoctree_tpu_torch.octree.tile_render import (
     RUNROWS, TILE, TileRenderer, _untile, build_tile_index,
 )
 from plenoctree_tpu_torch.octree.optimize import make_update
+from plenoctree_tpu_torch.utils import tracing
 
 _F32 = torch.float32
 
@@ -113,6 +114,7 @@ class TileOptimizer:
         kw = dict(r._kernel_kw)
         del kw["stop_thresh"], kw["od_cap"]
         self._kw = kw
+        self.steps = 0  # loss_and_grad calls: the request id of their spans
 
     # -- leaf data <-> tree ------------------------------------------------
 
@@ -132,14 +134,15 @@ class TileOptimizer:
     def _assemble(self, leaf_dataT):
         """[D, n_kept] -> the blocked soa with its data rows from leaf_dataT:
         one column gather (autograd: the instance -> leaf segment-sum) and a
-        block relayout."""
+        block relayout. Traced as `tile_opt.gather`."""
         D = self.data_dim
-        pad = torch.zeros(D, 1, dtype=leaf_dataT.dtype, device=leaf_dataT.device)
-        rows = torch.index_select(torch.cat([leaf_dataT, pad], dim=1), 1, self.col_leaf)
-        nb, _, q = self.static_soa.shape
-        blocked = rows.reshape(D, nb, q).permute(1, 0, 2)
-        s = self.static_soa
-        return torch.cat([s[:, :6], blocked, s[:, 6 + D :]], dim=1).contiguous()
+        with tracing.span("tile_opt.gather"):
+            pad = torch.zeros(D, 1, dtype=leaf_dataT.dtype, device=leaf_dataT.device)
+            rows = torch.index_select(torch.cat([leaf_dataT, pad], dim=1), 1, self.col_leaf)
+            nb, _, q = self.static_soa.shape
+            blocked = rows.reshape(D, nb, q).permute(1, 0, 2)
+            s = self.static_soa
+            return torch.cat([s[:, :6], blocked, s[:, 6 + D :]], dim=1).contiguous()
 
     def _frame(self, leaf_dataT, c2w, height, width, fx):
         """(image [H, W, nc], n_max, nc_max, w1_over) as tensors; the image
@@ -164,19 +167,25 @@ class TileOptimizer:
 
     def loss_and_grad(self, leaf_dataT, c2w, gt, height, width, fx):
         """Returns ((loss, (img, n_max, nc_max, w1_over)), grad_leaf_dataT),
-        all tensors on the optimizer's device."""
-        leaf = leaf_dataT.detach().requires_grad_(True)
-        gt = torch.tensor(np.asarray(gt, np.float32), device=self.device)
-        with torch.enable_grad():
-            img, n_max, nc_max, w1_over = self._frame(leaf, c2w, height, width, fx)
-            # The reference clamps the render before the MSE
-            # (octree/optimization.py:218-219). min(max()) rather than
-            # clamp: like jnp.clip, it halves the gradient of a pixel that
-            # lies exactly on a bound (a background pixel is exactly 1).
-            one = torch.ones((), dtype=_F32, device=self.device)
-            clipped = torch.minimum(torch.maximum(img, torch.zeros_like(one)), one)
-            loss = torch.mean((clipped - gt) ** 2)
-            (grad,) = torch.autograd.grad(loss, leaf)
+        all tensors on the optimizer's device. Traced as one `tile_opt.step`
+        span (request id: this optimizer's call number) over `tile.inputs`,
+        `tile_opt.gather`, `tile.composite` and `tile_opt.backward` (the
+        tile backward kernel and the gather's segment-sum)."""
+        self.steps += 1
+        with tracing.span("tile_opt.step", request=self.steps):
+            leaf = leaf_dataT.detach().requires_grad_(True)
+            gt = torch.tensor(np.asarray(gt, np.float32), device=self.device)
+            with torch.enable_grad():
+                img, n_max, nc_max, w1_over = self._frame(leaf, c2w, height, width, fx)
+                # The reference clamps the render before the MSE
+                # (octree/optimization.py:218-219). min(max()) rather than
+                # clamp: like jnp.clip, it halves the gradient of a pixel that
+                # lies exactly on a bound (a background pixel is exactly 1).
+                one = torch.ones((), dtype=_F32, device=self.device)
+                clipped = torch.minimum(torch.maximum(img, torch.zeros_like(one)), one)
+                loss = torch.mean((clipped - gt) ** 2)
+                with tracing.span("tile_opt.backward"):
+                    (grad,) = torch.autograd.grad(loss, leaf)
         return (loss.detach(), (img.detach(), n_max, nc_max, w1_over)), grad
 
     @torch.no_grad()

@@ -39,6 +39,7 @@ import torch
 
 from plenoctree_tpu_torch.kernels.tile_composite import _fma, composite_tiles
 from plenoctree_tpu_torch.octree.renderer import RenderOptions, _norm3, _ray_basis, resolve_device
+from plenoctree_tpu_torch.utils import tracing
 
 TILE = 16  # pixels per tile side (256 rays)
 RUNROWS = 128  # default instance rows per compute chunk
@@ -750,6 +751,7 @@ class TileRenderer:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)  # the replicas are read on other streams
         self.output = output
+        self.frames = 0  # render_persp calls: the request id of their spans
         self.tile = tile
         self.rays = tile * tile
         od_cap = (
@@ -845,114 +847,117 @@ class TileRenderer:
         fx_t = torch.tensor(float(fx), dtype=_F32, device=dev)
 
         def tile_inputs(c2w, csr, base, extra_data, blk_bbox):
-            c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
-            tiles_x = wp // TILE
-            t_idx = torch.arange(tile_lo, tile_hi, dtype=_I32, device=dev)[:, None]
-            r_idx = torch.arange(RAYS_T, dtype=_I32, device=dev)[None, :]
-            qi = r_idx // (Q * Q)
-            rr = r_idx % (Q * Q)
-            y = (t_idx // tiles_x) * TILE + (qi // 2) * Q + rr // Q
-            x = (t_idx % tiles_x) * TILE + (qi % 2) * Q + rr % Q
-            xf = x.to(_F32).clamp(max=width - 1.0)
-            yf = y.to(_F32).clamp(max=height - 1.0)
-            cam_dirs = torch.stack(
-                [
-                    (xf - width * 0.5) / fx_t,
-                    -(yf - height * 0.5) / fx_t,
-                    -torch.ones_like(xf),
-                ],
-                dim=-1,
-            )  # [T, RAYS, 3]
-            rot = c2w[:3, :3]
-            # f32 rotation as XLA's dot computes it: an FMA chain over j.
-            d_world = _fma(
-                rot[:, 2],
-                cam_dirs[..., 2:3],
-                _fma(rot[:, 1], cam_dirs[..., 1:2], rot[:, 0] * cam_dirs[..., 0:1]),
-            )
-            if self.ndc is not None:
-                # convert_to_ndc (near 1) on the device: shift each ray to
-                # the near plane, then project; origins become per ray.
-                o_space, d_world = self._to_ndc(c2w[:3, 3], d_world)
-                o = _fma(o_space, invradius, offset)
-            else:
-                o = (c2w[:3, 3] * invradius + offset).expand(d_world.shape)
-            viewdirs = d_world / _norm3(d_world)[..., None]
-            d = viewdirs * invradius
-            delta_scale = 1.0 / _norm3(d)
-            dn = d * delta_scale[..., None]
-            # Floor |dn| at 1e-6 (sign-preserving), not lower: the kernel's
-            # slab test runs as box*invd - o*invd, which cancels badly in
-            # f32 for huge invd (exactly axis-aligned rays: every NDC ray of
-            # a fronto-parallel camera; the JAX package measured +-60
-            # t-units of error at a 1e-9 floor). A ray with |dn| < 1e-6
-            # drifts < 2e-6 across the unit box, far inside a cell.
-            safe_dn = torch.where(
-                dn.abs() < 1e-6, torch.where(dn < 0, -1e-6, 1e-6), dn
-            )
-            invd = 1.0 / safe_dn
-            t0 = (0.0 - o) * invd
-            t1 = (1.0 - o) * invd
-            tmin = torch.minimum(t0, t1).amax(-1).clamp(min=0.0) + 1e-5
-            tmax = torch.maximum(t0, t1).amin(-1) - 1e-5
-            basis = _ray_basis(
-                self.fmt, self.basis_dim, viewdirs.reshape(-1, 3), extra_data
-            ).reshape(n_tiles, RAYS_T, -1)
+            with tracing.span("tile.inputs") as s:
+                c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
+                tiles_x = wp // TILE
+                t_idx = torch.arange(tile_lo, tile_hi, dtype=_I32, device=dev)[:, None]
+                r_idx = torch.arange(RAYS_T, dtype=_I32, device=dev)[None, :]
+                qi = r_idx // (Q * Q)
+                rr = r_idx % (Q * Q)
+                y = (t_idx // tiles_x) * TILE + (qi // 2) * Q + rr // Q
+                x = (t_idx % tiles_x) * TILE + (qi % 2) * Q + rr % Q
+                xf = x.to(_F32).clamp(max=width - 1.0)
+                yf = y.to(_F32).clamp(max=height - 1.0)
+                cam_dirs = torch.stack(
+                    [
+                        (xf - width * 0.5) / fx_t,
+                        -(yf - height * 0.5) / fx_t,
+                        -torch.ones_like(xf),
+                    ],
+                    dim=-1,
+                )  # [T, RAYS, 3]
+                rot = c2w[:3, :3]
+                # f32 rotation as XLA's dot computes it: an FMA chain over j.
+                d_world = _fma(
+                    rot[:, 2],
+                    cam_dirs[..., 2:3],
+                    _fma(rot[:, 1], cam_dirs[..., 1:2], rot[:, 0] * cam_dirs[..., 0:1]),
+                )
+                if self.ndc is not None:
+                    # convert_to_ndc (near 1) on the device: shift each ray to
+                    # the near plane, then project; origins become per ray.
+                    o_space, d_world = self._to_ndc(c2w[:3, 3], d_world)
+                    o = _fma(o_space, invradius, offset)
+                else:
+                    o = (c2w[:3, 3] * invradius + offset).expand(d_world.shape)
+                viewdirs = d_world / _norm3(d_world)[..., None]
+                d = viewdirs * invradius
+                delta_scale = 1.0 / _norm3(d)
+                dn = d * delta_scale[..., None]
+                # Floor |dn| at 1e-6 (sign-preserving), not lower: the kernel's
+                # slab test runs as box*invd - o*invd, which cancels badly in
+                # f32 for huge invd (exactly axis-aligned rays: every NDC ray of
+                # a fronto-parallel camera; the JAX package measured +-60
+                # t-units of error at a 1e-9 floor). A ray with |dn| < 1e-6
+                # drifts < 2e-6 across the unit box, far inside a cell.
+                safe_dn = torch.where(
+                    dn.abs() < 1e-6, torch.where(dn < 0, -1e-6, 1e-6), dn
+                )
+                invd = 1.0 / safe_dn
+                t0 = (0.0 - o) * invd
+                t1 = (1.0 - o) * invd
+                tmin = torch.minimum(t0, t1).amax(-1).clamp(min=0.0) + 1e-5
+                tmax = torch.maximum(t0, t1).amin(-1) - 1e-5
+                basis = _ray_basis(
+                    self.fmt, self.basis_dim, viewdirs.reshape(-1, 3), extra_data
+                ).reshape(n_tiles, RAYS_T, -1)
 
-            ray_ok = tmax > tmin
-            any_hit = ray_ok.any(1)
-            span_lo = torch.where(ray_ok, tmin, float("inf")).amin(1)
-            span_hi = torch.where(ray_ok, tmax, float("-inf")).amax(1)
+                ray_ok = tmax > tmin
+                any_hit = ray_ok.any(1)
+                span_lo = torch.where(ray_ok, tmin, float("inf")).amin(1)
+                span_hi = torch.where(ray_ok, tmax, float("-inf")).amax(1)
 
-            if self.ndc is not None:
-                gplanes, goff = _segment_aabb_planes(o, dn, tmin, tmax, ray_ok, Q)
-            else:
-                # Quad-group frustum planes through the shared apex,
-                # oriented inward via the quad's mean direction.
-                gdirs = dn[:, gc_idx].reshape(n_tiles, 4, 4, 3)
-                A, B, Cq, D = (gdirs[:, :, k] for k in range(4))
-                nrm = torch.stack(
-                    [_cross(A, B), _cross(B, D), _cross(D, Cq), _cross(Cq, A)], dim=2
-                )  # [T, 4 groups, 4 planes, 3]
-                dmean_g = gdirs.mean(dim=2)
-                sgn_n = torch.sign((nrm * dmean_g[:, :, None, :]).sum(-1, keepdim=True))
-                nrm = nrm * torch.where(sgn_n == 0, 1.0, sgn_n)
-                nrm = nrm / (_norm3(nrm)[..., None] + 1e-12)
-                gplanes = nrm.reshape(n_tiles, 16, 3)
-                goff = _dot3(gplanes, o[:, 0][:, None, :])  # n . apex
+                if self.ndc is not None:
+                    gplanes, goff = _segment_aabb_planes(o, dn, tmin, tmax, ray_ok, Q)
+                else:
+                    # Quad-group frustum planes through the shared apex,
+                    # oriented inward via the quad's mean direction.
+                    gdirs = dn[:, gc_idx].reshape(n_tiles, 4, 4, 3)
+                    A, B, Cq, D = (gdirs[:, :, k] for k in range(4))
+                    nrm = torch.stack(
+                        [_cross(A, B), _cross(B, D), _cross(D, Cq), _cross(Cq, A)], dim=2
+                    )  # [T, 4 groups, 4 planes, 3]
+                    dmean_g = gdirs.mean(dim=2)
+                    sgn_n = torch.sign((nrm * dmean_g[:, :, None, :]).sum(-1, keepdim=True))
+                    nrm = nrm * torch.where(sgn_n == 0, 1.0, sgn_n)
+                    nrm = nrm / (_norm3(nrm)[..., None] + 1e-12)
+                    gplanes = nrm.reshape(n_tiles, 16, 3)
+                    goff = _dot3(gplanes, o[:, 0][:, None, :])  # n . apex
 
-            (
-                chunk_c0, chunk_lo, chunk_hi, chunk_mask, n_kept_p,
-                n_total, w1_over, n_pieces_pre,
-            ) = _phase1(
-                csr, base, margin, blk_bbox,
-                o[:, corners], dn[:, corners],
-                gplanes, goff, span_lo, span_hi, any_hit,
-                grid_c=self.grid_c, fine_c2=self.fine_c2, w1cap=w1cap,
-                quantum=self.quantum, ccap=ccap,
-            )
-            nck = n_kept_p.clamp(max=ccap).to(_I32)
-            z = torch.zeros_like(nck)
-            meta = torch.stack([nck, z, z, z], dim=-1)[:, None, :]
-            mean_d = dn.mean(dim=1)
-            mdir = torch.cat(
-                [mean_d, torch.zeros(n_tiles, 1, dtype=_F32, device=dev)], dim=-1
-            )[:, None, :]
-            aux = torch.stack([delta_scale, tmin, tmax, torch.zeros_like(tmin)], dim=-1)
-            pad1 = torch.zeros(n_tiles, RAYS_T, 1, dtype=_F32, device=dev)
-            p2_args = (
-                meta.contiguous(),
-                chunk_c0[:, None, :].contiguous(),
-                chunk_lo[:, None, :].contiguous(),
-                chunk_hi[:, None, :].contiguous(),
-                chunk_mask[:, None, :].contiguous(),
-                torch.cat([o, pad1], dim=-1),
-                torch.cat([invd, pad1], dim=-1),
-                aux.contiguous(),
-                mdir.contiguous(),
-                basis.contiguous(),
-            )
-            return p2_args, n_total, n_pieces_pre, w1_over
+                (
+                    chunk_c0, chunk_lo, chunk_hi, chunk_mask, n_kept_p,
+                    n_total, w1_over, n_pieces_pre,
+                ) = _phase1(
+                    csr, base, margin, blk_bbox,
+                    o[:, corners], dn[:, corners],
+                    gplanes, goff, span_lo, span_hi, any_hit,
+                    grid_c=self.grid_c, fine_c2=self.fine_c2, w1cap=w1cap,
+                    quantum=self.quantum, ccap=ccap,
+                )
+                nck = n_kept_p.clamp(max=ccap).to(_I32)
+                if s:  # the chunks handed to the kernel, summed over the tiles
+                    s.count(pieces=nck.sum())
+                z = torch.zeros_like(nck)
+                meta = torch.stack([nck, z, z, z], dim=-1)[:, None, :]
+                mean_d = dn.mean(dim=1)
+                mdir = torch.cat(
+                    [mean_d, torch.zeros(n_tiles, 1, dtype=_F32, device=dev)], dim=-1
+                )[:, None, :]
+                aux = torch.stack([delta_scale, tmin, tmax, torch.zeros_like(tmin)], dim=-1)
+                pad1 = torch.zeros(n_tiles, RAYS_T, 1, dtype=_F32, device=dev)
+                p2_args = (
+                    meta.contiguous(),
+                    chunk_c0[:, None, :].contiguous(),
+                    chunk_lo[:, None, :].contiguous(),
+                    chunk_hi[:, None, :].contiguous(),
+                    chunk_mask[:, None, :].contiguous(),
+                    torch.cat([o, pad1], dim=-1),
+                    torch.cat([invd, pad1], dim=-1),
+                    aux.contiguous(),
+                    mdir.contiguous(),
+                    basis.contiguous(),
+                )
+                return p2_args, n_total, n_pieces_pre, w1_over
 
         return tile_inputs
 
@@ -975,17 +980,20 @@ class TileRenderer:
         hp = -(-height // TILE) * TILE
         wp = -(-width // TILE) * TILE
         nc = self.n_channels
-        out, maxima = self._render_ranges(c2w, height, width, fx)
-        rgb = out[:, :, :nc]
-        light = out[:, :, nc]
-        img = rgb + light[..., None] * self.opts.background_brightness
-        img = _untile(img, hp, wp, TILE)[:height, :width]
-        if self.output == "u8":
-            img8 = torch.round(img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-            tail = maxima.view(torch.uint8)
-            return torch.cat([img8.reshape(-1), tail])
-        n_max, nc_max, w1_max = maxima
-        return img, n_max, nc_max, w1_max
+        with tracing.span("tile.render"):
+            parts = self._render_ranges(c2w, height, width, fx)
+            with tracing.span("tile.assemble"):
+                out, maxima = self._gather(parts)
+                rgb = out[:, :, :nc]
+                light = out[:, :, nc]
+                img = rgb + light[..., None] * self.opts.background_brightness
+                img = _untile(img, hp, wp, TILE)[:height, :width]
+                if self.output == "u8":
+                    img8 = torch.round(img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+                    tail = maxima.view(torch.uint8)
+                    return torch.cat([img8.reshape(-1), tail])
+                n_max, nc_max, w1_max = maxima
+                return img, n_max, nc_max, w1_max
 
     def tile_ranges(self, height, width):
         """[(device, replicas, stream, (t0, t1))]: each slot's contiguous
@@ -1000,9 +1008,8 @@ class TileRenderer:
     def _render_ranges(self, c2w, height, width, fx):
         """Phase 1 and the compositing of each slot's tile range on its
         device (over a mesh on its own stream on a GPU, every range launched
-        before any is gathered); returns the composited tiles [tiles, RAYS,
-        8] and the frame's int32 [n_max, nc_max, w1_over] on the first
-        device."""
+        before any is gathered); returns [(composited tiles, (n_total,
+        n_chunks, w1_over) per tile, stream)], one per slot, for `_gather`."""
         main = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         parts = []
         for dev, rep, stream, tiles in self.tile_ranges(height, width):
@@ -1017,10 +1024,19 @@ class TileRenderer:
                     c2w, rep["csr"], rep["base"], rep["extra_data"], rep["blk_bbox"]
                 )
                 out = composite_tiles(*p2_args, rep["soa"], **self._kernel_kw)
-                maxima = torch.stack([t.max().to(_I32) for t in (n_total, n_chunks, w1_over)])
-            parts.append((out, maxima, stream))
+            parts.append((out, (n_total, n_chunks, w1_over), stream))
+        return parts
+
+    def _gather(self, parts):
+        """The composited tiles [tiles, RAYS, 8] of `_render_ranges`'s parts
+        and the frame's int32 [n_max, nc_max, w1_over] (maxima over the
+        tiles, each part's on its own stream) on the first device."""
+        main = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         outs, maxima = [], []
-        for out, mx, stream in parts:
+        for out, counts, stream in parts:
+            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+            with ctx:
+                mx = torch.stack([t.max().to(_I32) for t in counts])
             if stream is not None:
                 main.wait_stream(stream)
                 out.record_stream(main)
@@ -1033,14 +1049,15 @@ class TileRenderer:
 
     def _fetch(self, out, height, width):
         """Device payload -> (img, n_max, nc_max, w1_over) on the host."""
-        if self.output == "u8":
-            payload = out.cpu().numpy()
-            img = payload[:-12].reshape(height, width, self.n_channels)
-            n_max, nc_max, w1_over = (int(x) for x in payload[-12:].view(np.int32))
-        else:
-            img, n_max, nc_max, w1_over = out
-            img = img.cpu().numpy()
-            n_max, nc_max, w1_over = int(n_max), int(nc_max), int(w1_over)
+        with tracing.span("tile.fetch"):
+            if self.output == "u8":
+                payload = out.cpu().numpy()
+                img = payload[:-12].reshape(height, width, self.n_channels)
+                n_max, nc_max, w1_over = (int(x) for x in payload[-12:].view(np.int32))
+            else:
+                img, n_max, nc_max, w1_over = out
+                img = img.cpu().numpy()
+                n_max, nc_max, w1_over = int(n_max), int(nc_max), int(w1_over)
         return img, n_max, nc_max, w1_over
 
     def _check_caps(self, n_max, nc_max, w1_over):
@@ -1072,10 +1089,15 @@ class TileRenderer:
 
     def render_persp(self, c2w, height, width, fx):
         """Render an image [H, W, nc] (numpy; float32, or uint8 when the
-        renderer was constructed with output="u8")."""
-        while True:
-            out = self.render_persp_async(c2w, height, width, fx)
-            img, n_max, nc_max, w1_over = self._fetch(out, height, width)
-            if not self._check_caps(n_max, nc_max, w1_over):
-                return img
-            # Sticky growth: the larger caps persist for later frames.
+        renderer was constructed with output="u8"). Traced as one
+        `tile.frame` span (request id: this renderer's frame number) over a
+        `tile.render` and a `tile.fetch` per attempt: a cap regrowth shows as
+        a second pair."""
+        self.frames += 1
+        with tracing.span("tile.frame", request=self.frames):
+            while True:
+                out = self.render_persp_async(c2w, height, width, fx)
+                img, n_max, nc_max, w1_over = self._fetch(out, height, width)
+                if not self._check_caps(n_max, nc_max, w1_over):
+                    return img
+                # Sticky growth: the larger caps persist for later frames.

@@ -237,11 +237,26 @@ def test_train_cli_profile_timings_and_events(tmp_path, capsys):
         "--chunk", "128", "--max_steps", "6", "--print_every", "2", "--save_every", "6",
         "--render_every", "3", "--profile_start_step", "2", "--profile_steps", "2",
     ])
-    traces = os.listdir(os.path.join(d, "profile"))
-    assert traces == ["trace_steps_2_4.json"]
-    with open(os.path.join(d, "profile", traces[0])) as f:
+    traces = sorted(os.listdir(os.path.join(d, "profile")))
+    assert traces == ["spans_steps_2_4.json", "trace_steps_2_4.json"]
+    with open(os.path.join(d, "profile", traces[1])) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "nerf.step" for e in events)
+    with open(os.path.join(d, "profile", traces[0])) as f:
+        spans = json.load(f)
+    # Steps 2, 3 and 4 (step 3's render left out), each one step span over a
+    # forward, a backward and an update; 32 * 4 coarse, 32 * (4 + 4) fine and
+    # 50 sparsity rows over the trunk's 3 calls a step.
+    assert spans["steps"] == 3 and spans["dropped"] == 0
+    per = spans["per_step"]
+    for name in ("nerf.step", "nerf.forward", "nerf.backward", "nerf.update", "nerf.coarse",
+                 "nerf.fine", "nerf.sparsity"):
+        assert per[name]["count"] == 1.0, name
+    assert per["nerf.trunk"]["count"] == 3.0
+    assert per["nerf.trunk"]["counts"]["rows"] == 32 * 4 + 32 * 8 + 50
+    assert 0 < per["nerf.forward"]["total_ms"] < per["nerf.step"]["total_ms"]
+    assert per["nerf.step"]["self_ms"] < per["nerf.step"]["total_ms"]
     steps = [s for s, _ in io_utils.parse_timings(os.path.join(d, "timings.txt"))]
     assert steps == [0, 3, 6]
     assert jio.timings_total_hours(os.path.join(d, "timings.txt")) > 0
