@@ -24,6 +24,7 @@ import torch
 
 from plenoctree_tpu_torch.kernels.tile_composite import composite_tiles, composite_tiles_bwd
 from plenoctree_tpu_torch.ops.metrics import compute_psnr
+from plenoctree_tpu_torch.octree.renderer import resolve_device
 from plenoctree_tpu_torch.octree.tile_render import (
     RUNROWS, TILE, TileRenderer, _untile, build_tile_index,
 )
@@ -62,7 +63,7 @@ class TileOptimizer:
     leaf_dataT is [data_dim, n_kept] on the optimizer's device (transposed,
     so the per-step soa assembly is one gather along the column axis).
     `index` takes a keep_all tile index built earlier for the same tree (a
-    regrowth rebuild reuses it instead of repeating the host build).
+    regrowth rebuild reuses it instead of repeating the build).
     """
 
     def __init__(
@@ -82,7 +83,8 @@ class TileOptimizer:
     ):
         if index is None:
             index = build_tile_index(
-                tree, 0.0, grid_c, fine_c2, runrows, keep_all=True, quantum=quantum
+                tree, 0.0, grid_c, fine_c2, runrows, keep_all=True, quantum=quantum,
+                device=resolve_device(device, "TileOptimizer"),
             )
         # Exact mode + keep-all: svox parity (no thresholds during opt).
         self.r = TileRenderer(
@@ -107,7 +109,7 @@ class TileOptimizer:
         self.data_dim = int(idx["sigma_row"]) - 6 + 1
         self.n_kept = int(idx["n_kept"])
         self.col_leaf = torch.as_tensor(idx["col_leaf"]).to(self.device).long()
-        self.keep_mask = np.asarray(idx["keep_mask"])
+        self.keep_mask = torch.as_tensor(idx["keep_mask"]).cpu().numpy()
         # Static soa: geometry (and pad) rows stay; data rows come from
         # leaf_dataT at every step.
         self.static_soa = idx["soa"]

@@ -3,11 +3,14 @@
 Port of plenoctree_tpu/octree/tile_render.py (see its docstring for the
 algorithm). The three stages keep their JAX structure:
 
-  * Build (host numpy, per scene): `build_tile_index` — every leaf above
-    the sigma threshold is split into clipped replicas, one per coarse
-    C^3 cell it overlaps, sorted in three axis-major orders, and laid out
-    as a blocked soa [n_blk, fields, quantum]. Returns numpy; the renderer
-    moves the arrays it needs to its device.
+  * Build (per scene): `build_tile_index` — every leaf above the sigma
+    threshold is split into clipped replicas, one per coarse C^3 cell it
+    overlaps, sorted in three axis-major orders, and laid out as a blocked
+    soa [n_blk, fields, quantum]. In torch on the renderer's device,
+    bitwise the JAX package's numpy build. Row ids are int32 from the index
+    to the kernel, so an index holds fewer than 2^31 rows (MAX_INDEX_ROWS);
+    the JAX package refuses 2^24 and more, which its phase 1 moves through
+    f32 one-hot matmuls.
   * Phase 1 (PyTorch on the device, all tiles at once): the per-tile
     frustum walk through the grid giving tight contiguous row ranges,
     window-merged runs and quantum-aligned piece descriptors with 4-bit
@@ -40,9 +43,7 @@ the eager chain.
 """
 
 import contextlib
-import os
 import warnings
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -57,9 +58,13 @@ TILE = 16  # pixels per tile side (256 rays)
 RUNROWS = 128  # default instance rows per compute chunk
 # Same layout version as the JAX package: one index serves both.
 INDEX_FORMAT_VERSION = 6
-# Block ranges per axis-major copy that build_tile_index writes as separate
-# tasks on its thread pool.
-_INDEX_TASKS_PER_AXIS = 4
+# Rows of an axis copy that build_tile_index lays out at a time (its
+# temporaries are a few copies of them).
+_BUILD_ROWS = 1 << 20
+# Row ids (csr, base, col_leaf, run bounds, piece descriptors) are int32 on
+# the whole path from the index to the kernel; the kernel addresses the soa
+# through 64-bit block offsets.
+MAX_INDEX_ROWS = 2**31
 # Axis copies are padded to a COPY_PAD multiple so one index serves any
 # runrows <= COPY_PAD.
 COPY_PAD = 1024
@@ -69,16 +74,24 @@ _I32 = torch.int32
 
 
 # ---------------------------------------------------------------------------
-# Build: clipped instance replication, 3 axis-major sort orders (host numpy)
+# Build: clipped instance replication, 3 axis-major sort orders
 # ---------------------------------------------------------------------------
 
 
 def build_tile_index(
     tree, sigma_thresh=0.0, grid_c=64, fine_c2=None, runrows=RUNROWS,
-    keep_all=False, quantum=128,
+    keep_all=False, quantum=128, device=None,
 ):
-    """Host-side per-scene preprocessing (numpy; bit-identical to the JAX
-    package's build_tile_index, which returns jax arrays for some keys).
+    """Per-scene preprocessing, in torch on `device` (the renderer's; a
+    depth-8 SH16 index builds in 6 s on an H100, in 53 s in numpy on its
+    host). It is bit-identical to the JAX package's numpy build_tile_index: the same
+    operations in f64, true divisions by tensors, stable sorts, the
+    threshold compared in the dtype numpy compares f32 with it in. With
+    `device` None it runs on the CPU and returns numpy arrays, as the JAX
+    package's does (which returns jax arrays for some keys); else tensors on
+    `device`. The tree's rows and node placement go to the device once; the
+    leaf corners and sizes are N3Tree._cell_corner's and _cell_size's
+    arithmetic.
 
     Returns dict with:
       soa  [3*npad/quantum, fields, quantum] f32 blocked field-major rows:
@@ -90,130 +103,140 @@ def build_tile_index(
       col_leaf, keep_mask, n_kept, blk_quantum, grid_c, fine_c2,
       n_instances, sigma_row
     """
-    leaves = tree._leaf_nodes()
-    corner = tree._cell_corner(leaves).astype(np.float64)
-    size = tree._cell_size(leaves).astype(np.float64)
-    data = tree.data[leaves[:, 0], leaves[:, 1], leaves[:, 2], leaves[:, 3]].astype(
-        np.float32
-    )
-    sigma = data[:, -1]
-    if keep_all:
-        keep = np.ones(sigma.shape, bool)
-    else:
-        keep = (sigma > 0.0) & (sigma > sigma_thresh)
-    corner, size, data = corner[keep], size[keep], data[keep]
-
+    del runrows  # layout is chunking-independent (see COPY_PAD)
+    dev = torch.device("cpu" if device is None else device)
+    f32, f64, i64 = torch.float32, torch.float64, torch.int64
     C = grid_c
     c2 = fine_c2 or 4 * C
-    lo_cell = np.clip((corner * C).astype(np.int64), 0, C - 1)
-    hi_cell = np.clip(
-        np.ceil((corner + size[:, None]) * C).astype(np.int64) - 1, 0, C - 1
-    )
+    n_int = tree.n_internal
+    node_origin, node_scale = tree._node_origins()
+    rows = torch.from_numpy(
+        np.ascontiguousarray(tree.data[:n_int]).reshape(n_int * tree.N**3, -1)).to(dev)
+    flat = torch.from_numpy(np.flatnonzero(tree.child[:n_int] == 0)).to(dev)  # leaf cells
+    if keep_all:
+        keep = torch.ones(flat.shape, dtype=torch.bool, device=dev)
+    else:
+        dt = torch.from_numpy(np.zeros(0, np.result_type(np.float32, sigma_thresh))).dtype
+        sigma = rows[flat, -1].to(f32)
+        keep = (sigma > 0.0) & (sigma.to(dt) > torch.tensor(sigma_thresh, dtype=dt, device=dev))
+        flat = flat[keep]
+    data = rows[flat].to(f32)
+    del rows
+    node = flat // tree.N**3
+    ijk = torch.stack([(flat // tree.N**2) % tree.N, (flat // tree.N) % tree.N,
+                       flat % tree.N], -1).to(f64)
+    sz = torch.from_numpy(node_scale).to(dev)[node] / torch.tensor(float(tree.N), dtype=f64,
+                                                                   device=dev)
+    corner = (torch.from_numpy(node_origin).to(dev)[node] + ijk * sz[:, None]).to(f32).to(f64)
+    size = sz.to(f32).to(f64)
+    del node, ijk, sz, flat
+
+    lo_cell = (corner * C).to(i64).clamp(0, C - 1)
+    hi_cell = (torch.ceil((corner + size[:, None]) * C).to(i64) - 1).clamp(0, C - 1)
     span = hi_cell - lo_cell + 1
 
-    max_span = int(span.max()) if span.size else 1
+    max_span = int(span.max()) if span.numel() else 1
     # Only leaves wider than one coarse cell have replicas past (0, 0, 0):
     # scanning just those keeps the build linear in the leaf count where a
     # keep_all index holds a few large empty leaves (max_span up to C/2).
     # Same instances, in the same order, as scanning every leaf.
-    wide = np.nonzero(span.max(axis=1) > 1)[0]
+    wide = torch.nonzero(span.amax(1) > 1).squeeze(1)
     span_w = span[wide]
     inst_leaf, inst_vox = [], []
     for dx in range(max_span):
         for dy in range(max_span):
             for dz in range(max_span):
                 if dx == dy == dz == 0:
-                    idx = np.arange(span.shape[0])
+                    idx = torch.arange(span.shape[0], device=dev)
                 else:
                     idx = wide[(dx < span_w[:, 0]) & (dy < span_w[:, 1]) & (dz < span_w[:, 2])]
-                if idx.size == 0:
+                if idx.numel() == 0:
                     continue
                 inst_leaf.append(idx)
-                inst_vox.append(lo_cell[idx] + np.array([dx, dy, dz])[None, :])
-    if inst_leaf:
-        inst_leaf = np.concatenate(inst_leaf)
-        inst_vox = np.concatenate(inst_vox, axis=0)
-    else:
-        inst_leaf = np.zeros(0, np.int64)
-        inst_vox = np.zeros((0, 3), np.int64)
+                inst_vox.append(lo_cell[idx] + torch.tensor([dx, dy, dz], device=dev))
+    inst_leaf = torch.cat(inst_leaf) if inst_leaf else torch.zeros(0, dtype=i64, device=dev)
+    inst_vox = (torch.cat(inst_vox) if inst_vox
+                else torch.zeros((0, 3), dtype=i64, device=dev))
     n = inst_leaf.shape[0]
 
-    box_lo = np.maximum(corner[inst_leaf], inst_vox / C)
-    box_hi = np.minimum(
-        (corner + size[:, None])[inst_leaf], (inst_vox + 1) / C
-    )
+    Ct = torch.tensor(float(C), dtype=f64, device=dev)
+    box_lo = torch.maximum(corner[inst_leaf], inst_vox.to(f64) / Ct)
+    box_hi = torch.minimum((corner + size[:, None])[inst_leaf], (inst_vox + 1).to(f64) / Ct)
+    del corner, size, lo_cell, hi_cell, span
     d_cols = data.shape[1]
 
-    del runrows  # layout is chunking-independent (see COPY_PAD)
-    npad = max(-(-n // COPY_PAD) * COPY_PAD, COPY_PAD)
-    if 3 * npad >= 2**24:
-        # Kept from the JAX package so both accept the same trees: its
-        # phase 1 moves row ids through f32 one-hot matmuls.
-        raise ValueError(
-            f"tile index too large: 3*npad = {3*npad} >= 2^24 rows; phase-1 "
-            "one-hot matmul compaction would lose integer exactness."
-        )
+    npad = _padded_rows(n)
     fields = 6 + d_cols
     fpad = -(-fields // 8) * 8
     nblk = npad // quantum
-    soa3 = np.zeros((3 * nblk, fpad, quantum), np.float32)
-    csr = np.zeros((3, C * C * c2 + 1), np.int64)
-    base = np.array([0, npad, 2 * npad], np.int64)
-    margin = np.zeros(3, np.float32)
+    soa3 = torch.zeros((3 * nblk, fpad, quantum), dtype=f32, device=dev)
+    csr = torch.zeros((3, C * C * c2 + 1), dtype=i64, device=dev)
+    margin = torch.zeros(3, dtype=f32, device=dev)
     n_kept = int(keep.sum())
-    col_leaf = np.full(3 * npad, n_kept, np.int32)
+    col_leaf = torch.full((3 * npad,), n_kept, dtype=torch.int32, device=dev)
     ctr = 0.5 * (box_lo + box_hi)
     ext = box_hi - box_lo
-    blk_bbox = np.zeros((3 * nblk, 8), np.float32)
-    orders = [None] * 3
-
-    # Each axis-major copy is sorted, then written straight into its blocks
-    # (rows lo(3) hi(3) data, transposed to fields x quantum) in ranges of
-    # blocks. Every task writes only its own ranges, so they run on
-    # threads: numpy's sorts, gathers and copies release the GIL.
-    def sort(axis):
+    blk_bbox = torch.zeros((3 * nblk, 8), dtype=f32, device=dev)
+    # Each axis-major copy is sorted, then written into its blocks (rows
+    # lo(3) hi(3) data, transposed to fields x quantum) _BUILD_ROWS rows at
+    # a time, so the temporaries stay a few copies of that.
+    step = max(1, _BUILD_ROWS // quantum)
+    for axis in range(3):
         p = (axis, (axis + 1) % 3, (axis + 2) % 3)
-        v2 = np.clip((ctr[:, p[2]] * c2).astype(np.int64), 0, c2 - 1)
+        v2 = (ctr[:, p[2]] * c2).to(i64).clamp(0, c2 - 1)
         key = (inst_vox[:, p[0]] * C + inst_vox[:, p[1]]) * c2 + v2
-        orders[axis] = order = np.argsort(key, kind="stable")
-        col_leaf[axis * npad : axis * npad + n] = inst_leaf[order]
-        csr[axis, 1:] = np.cumsum(np.bincount(key, minlength=C * C * c2))
-        margin[axis] = 0.5 * float(ext[:, p[2]].max()) if n else 0.0
-
-    def write(axis, b0, b1):
-        o = orders[axis][b0 * quantum : b1 * quantum]
-        srt = np.zeros(((b1 - b0) * quantum, fields), np.float32)
-        srt[: o.size, 0:3] = box_lo[o]
-        srt[: o.size, 3:6] = box_hi[o]
-        srt[: o.size, 6:] = data[inst_leaf[o]]
-        soa3[axis * nblk + b0 : axis * nblk + b1, :fields] = srt.reshape(
-            b1 - b0, quantum, fields).transpose(0, 2, 1)
-        srt[o.size :, 0:3] = np.inf
-        srt[o.size :, 3:6] = -np.inf
-        blk = srt[:, 0:6].reshape(b1 - b0, quantum, 6)
-        blk_bbox[axis * nblk + b0 : axis * nblk + b1, 0:3] = blk[:, :, 0:3].min(axis=1)
-        blk_bbox[axis * nblk + b0 : axis * nblk + b1, 3:6] = blk[:, :, 3:6].max(axis=1)
-
-    step = -(-nblk // _INDEX_TASKS_PER_AXIS)
-    with ThreadPoolExecutor(min(3 * _INDEX_TASKS_PER_AXIS, os.cpu_count() or 1)) as pool:
-        list(pool.map(sort, range(3)))
-        list(pool.map(lambda t: write(*t), [(a, b, min(b + step, nblk))
-                                             for a in range(3) for b in range(0, nblk, step)]))
-    return {
+        order = torch.sort(key, stable=True).indices
+        col_leaf[axis * npad : axis * npad + n] = inst_leaf[order].to(torch.int32)
+        csr[axis, 1:] = torch.cumsum(torch.bincount(key, minlength=C * C * c2), 0)
+        if n:
+            margin[axis] = (0.5 * ext[:, p[2]].max()).to(f32)
+        del v2, key
+        for b0 in range(0, nblk, step):
+            b1 = min(b0 + step, nblk)
+            o = order[b0 * quantum : b1 * quantum]
+            m = o.shape[0]
+            srt = torch.zeros(((b1 - b0) * quantum, fields), dtype=f32, device=dev)
+            srt[:m, 0:3] = box_lo[o].to(f32)
+            srt[:m, 3:6] = box_hi[o].to(f32)
+            srt[:m, 6:] = data[inst_leaf[o]]
+            soa3[axis * nblk + b0 : axis * nblk + b1, :fields] = srt.reshape(
+                b1 - b0, quantum, fields).transpose(1, 2)
+            srt[m:, 0:3] = float("inf")
+            srt[m:, 3:6] = -float("inf")
+            blk = srt[:, 0:6].reshape(b1 - b0, quantum, 6)
+            blk_bbox[axis * nblk + b0 : axis * nblk + b1, 0:3] = blk[:, :, 0:3].amin(1)
+            blk_bbox[axis * nblk + b0 : axis * nblk + b1, 3:6] = blk[:, :, 3:6].amax(1)
+    index = {
         "col_leaf": col_leaf,
         "n_kept": n_kept,
         "keep_mask": keep,
         "blk_bbox": blk_bbox,
         "blk_quantum": quantum,
         "soa": soa3,
-        "csr": csr.astype(np.int32),
-        "base": base.astype(np.int32),
+        "csr": csr.to(torch.int32),
+        "base": torch.tensor([0, npad, 2 * npad], dtype=torch.int32, device=dev),
         "margin": margin,
         "grid_c": C,
         "fine_c2": c2,
         "n_instances": n,
         "sigma_row": 6 + d_cols - 1,
     }
+    if device is None:
+        index = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in index.items()}
+    return index
+
+
+def _padded_rows(n):
+    """npad, the rows of each axis copy of n instances; refuses an index of
+    MAX_INDEX_ROWS rows or more."""
+    npad = max(-(-n // COPY_PAD) * COPY_PAD, COPY_PAD)
+    if 3 * npad >= MAX_INDEX_ROWS:
+        raise ValueError(
+            f"tile index too large: 3*npad = {3*npad} rows, the limit is "
+            f"{MAX_INDEX_ROWS - 1}: row ids (csr, base, col_leaf, run bounds, piece "
+            "descriptors) are int32"
+        )
+    return npad
 
 
 def index_from_jax(index):
@@ -520,6 +543,15 @@ def _phase1(
     )
 
 
+def _live_rows(piece_c0, piece_lo, piece_hi, quantum):
+    """The rows of each tile's pieces' soa blocks that lie inside their runs
+    ([T] int32 of [T, ..., ccap] descriptors): |[max(lo, c0), min(hi, c0 +
+    quantum))| a piece, never empty (each piece's block is one its run
+    overlaps, `_expand_pieces`); an empty slot (c0 = lo = hi = 0) has none."""
+    live = torch.minimum(piece_hi, piece_c0 + quantum) - torch.maximum(piece_lo, piece_c0)
+    return live.reshape(live.shape[0], -1).sum(-1, dtype=_I32)
+
+
 def _compact_by_flag(flag, cols):
     """Stable front-compaction along the last axis: flagged entries move to
     the front in order; the tail is zero (one stable sort on the flag)."""
@@ -663,9 +695,12 @@ class _FrameGraph:
         inputs = r._inputs_fn(height, width, fx, w1cap, ccap, device=self.pose_dev.device)
         self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
         with torch.cuda.graph(self.graphs[0]):
-            p2_args, *counts, self.nck = inputs(
+            p2_args, *counts, nck = inputs(
                 self.pose_dev, rep["csr"], rep["base"], rep["extra_data"], rep["blk_bbox"]
             )
+            # What a traced replay sums: the chunks handed to the kernel and
+            # their live rows, per tile.
+            self.tile_counts = torch.stack([nck, _live_rows(*p2_args[1:4], r.quantum)])
         pool = self.graphs[0].pool()
         with torch.cuda.graph(self.graphs[1], pool=pool):
             out = launch_fwd(*p2_args, rep["soa"], **r._kernel_kw)
@@ -684,8 +719,9 @@ class _FrameGraph:
             self.pose_dev.copy_(self.pose_host, non_blocking=True)
             self.pose_copied.record(stream)
             self.graphs[0].replay()
-            if s:  # the chunks handed to the kernel, summed over the tiles
-                s.count(pieces=self.nck.sum())
+            if s:  # the chunks handed to the kernel and their live rows
+                pieces, rows = self.tile_counts.sum(1)
+                s.count(pieces=pieces, rows=rows)
         replay_fwd(self.graphs[1])
         with tracing.span("tile.assemble"):
             self.graphs[2].replay()
@@ -773,16 +809,24 @@ class TileRenderer:
                     f"renderer was constructed with quantum={quantum}/"
                     f"grid_c={grid_c}"
                 )
-        else:
-            index = build_tile_index(
-                tree, sigma_thresh, grid_c, fine_c2, runrows, quantum=quantum
-            )
         dev = self.device
-        self.index = dict(index)
-        for k in ("soa", "blk_bbox", "margin"):
-            self.index[k] = torch.as_tensor(index[k], dtype=_F32).to(dev).contiguous()
-        for k in ("csr", "base"):
-            self.index[k] = torch.as_tensor(index[k], dtype=_I32).to(dev).contiguous()
+        # Set-up: the index's build on the device (unless one is injected)
+        # and an injected one's move there, counting its rows (3 * npad) and
+        # the device soa's bytes.
+        with tracing.span("tile.index") as s:
+            if index is None:
+                index = build_tile_index(
+                    tree, sigma_thresh, grid_c, fine_c2, runrows, quantum=quantum, device=dev
+                )
+            self.index = dict(index)
+            del index  # an injected host soa goes once it is on the device
+            for k in ("soa", "blk_bbox", "margin"):
+                self.index[k] = torch.as_tensor(self.index[k], dtype=_F32).to(dev).contiguous()
+            for k in ("csr", "base"):
+                self.index[k] = torch.as_tensor(self.index[k], dtype=_I32).to(dev).contiguous()
+            if s:
+                soa = self.index["soa"]
+                s.count(rows=soa.shape[0] * soa.shape[2], bytes=soa.nbytes)
         self.grid_c = grid_c
         self.fine_c2 = int(self.index["fine_c2"])
         self.rcap = rcap
@@ -934,8 +978,8 @@ class TileRenderer:
                 p2_args, n_total, n_pieces_pre, w1_over, nck = inputs(
                     c2w, csr, base, extra_data, blk_bbox
                 )
-                if s:  # the chunks handed to the kernel, summed over the tiles
-                    s.count(pieces=nck.sum())
+                if s:  # the chunks handed to the kernel and their live rows
+                    s.count(pieces=nck.sum(), rows=_live_rows(*p2_args[1:4], self.quantum).sum())
                 return p2_args, n_total, n_pieces_pre, w1_over
 
         return tile_inputs

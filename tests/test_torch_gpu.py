@@ -1098,3 +1098,91 @@ def test_replayed_ndc_frames_are_bitwise_the_eager_chain():
     attempts = _serve_and_check(r, poses, res, res, focal)
     assert attempts[-1] == [{"replays": 1}]
     _check_async(r, poses[2:], res, res, focal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,keep_all,grid_c", [
+    ("SH16", False, 64), ("SH16", False, 12), ("SG25", False, 64), ("SG25", True, 64)])
+def test_index_built_on_the_card_is_bitwise_the_cpu_build(fmt, keep_all, grid_c):
+    """build_tile_index on the card (what TileRenderer and TileOptimizer on
+    a CUDA device build): every array bitwise the CPU build's (numpy, itself
+    bitwise the JAX package's), every scalar equal; and a renderer on the
+    card holds that index."""
+    _need_cuda()
+    tree = (build_scene_tree(depth=6, basis_dim=16, sh_noise=0.05, seed=1) if fmt == "SH16"
+            else _sg25_tree(6))
+    thresh = 0.0 if keep_all else 1e-2
+    ref = TR.build_tile_index(tree, thresh, grid_c=grid_c, keep_all=keep_all)
+    out = TR.build_tile_index(tree, thresh, grid_c=grid_c, keep_all=keep_all, device="cuda")
+    assert set(out) == set(ref) and ref["n_kept"] > 0
+    for k, a in ref.items():
+        b = out[k]
+        if isinstance(a, np.ndarray):
+            assert isinstance(b, torch.Tensor) and b.device.type == "cuda", k
+            np.testing.assert_array_equal(b.cpu().numpy(), a, err_msg=k)
+        else:
+            assert type(b) is type(a) and b == a, k
+    if not keep_all:
+        r = TileRenderer(tree, step_size=1e-4, sigma_thresh=thresh, grid_c=grid_c, device="cuda")
+        for k in ("soa", "csr", "base", "blk_bbox", "margin"):
+            np.testing.assert_array_equal(r.index[k].cpu().numpy(), ref[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_the_depth8_sh16_tree_serves_through_replay_within_its_cells_limit():
+    """The benchmark's `sh16-d8` scene, the published depth-8 SH16 tree:
+    its tile index holds more than 2^24 rows (the cap the JAX package keeps);
+    TileRenderer serves it on the card, every frame bitwise the eager
+    chain's, graphs captured on the second frame and replayed after; then
+    sampled pixels of served frames within the `sh16-serve-d8` cell's limit
+    of the plain reference (benchmark/reference/octree_ref.py, f64)."""
+    _need_cuda()
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from benchmark import port_inputs, poses, run
+    from benchmark import scene as scene_lib
+    from benchmark.reference import octree_ref
+
+    cell, cfg, tr = run.load_cell("sh16-serve-d8")
+    assert cfg["tree"]["depth"] == 8 and cfg["reduced"] == []
+    seed, dev = 2**31 + 88, torch.device("cuda")
+    tree, _ = port_inputs.scene_tree(cfg, seed, dev)
+    kw = dict(step_eps=cfg["tree"]["step_size"], sigma_thresh=tr["sigma_thresh"],
+              stop_thresh=tr["stop_thresh"])
+    r = TileRenderer(tree, step_size=kw["step_eps"], sigma_thresh=kw["sigma_thresh"],
+                     stop_thresh=kw["stop_thresh"], grid_c=tr["grid_c"], output="u8",
+                     device="cuda")
+    del tree
+    assert r.index["soa"].shape[0] * r.quantum > 2**24
+    h = w = tr["height"]
+    fx = tr["focal_factor"] * w
+    orbit = [poses.orbit_pose(0.7 + 2.0 * np.pi * k / 5, tr["orbit_radius"],
+                              tr["orbit_height"]) for k in range(5)]
+    attempts = _serve_and_check(r, orbit + orbit[:2], h, w, fx)
+    assert attempts[-1] == [{"replays": 1}]
+    # A traced replay counts the pieces and live rows the eager chain hands #3.
+    idx = r.index
+    p2 = r.make_tile_inputs_fn(h, w, fx, r.rcap, r.w1cap, r.ccap)(
+        orbit[0], idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])[0]
+    want = {"pieces": int(p2[0][:, 0, 0].sum()),
+            "rows": int(TR._live_rows(*p2[1:4], r.quantum).sum())}
+    del p2
+    _, attempts = _traced_attempts(lambda: r.render_persp(orbit[0], h, w, fx))
+    assert attempts == [[{"replays": 1}]] and want["rows"] > want["pieces"] > 0
+    assert tracing.window()["by_name"]["tile.inputs"]["counts"] == want
+    frames = [r.render_persp(c2w, h, w, fx) for c2w in orbit[:2]]
+    r = None
+    torch.cuda.empty_cache()
+    sc = scene_lib.reference_scene(cfg, seed, dev, torch.float64)
+    rng = np.random.default_rng(5)
+    off = total = 0
+    for c2w, img in zip(orbit[:2], frames):
+        pix = torch.as_tensor(rng.choice(h * w, size=tr["check_pixels"], replace=False),
+                              device=dev)
+        ref = octree_ref.to_u8(octree_ref.render(sc, c2w, h, w, fx, pix, **kw))
+        got = torch.as_tensor(img.reshape(-1, 3), device=dev)[pix]
+        off += int((got != ref).sum())
+        total += ref.numel()
+    assert off / total <= cell["limits"]["pixel_off_share"], off / total

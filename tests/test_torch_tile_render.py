@@ -95,6 +95,46 @@ def test_build_tile_index_keep_all_matches_jax(trees, name):
         np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(ref[k]), err_msg=k)
 
 
+@pytest.mark.parametrize("name", ["sh1", "sh16"])
+@pytest.mark.parametrize("keep_all,grid_c,thresh", [
+    (False, GRID_C, 1e-2), (False, 12, np.float64(0.3)), (True, GRID_C, 0.0)])
+def test_build_on_a_device_is_bitwise_the_jax_build(trees, name, keep_all, grid_c, thresh):
+    """build_tile_index with a device (here the CPU; the card in
+    tests/test_torch_gpu.py) returns tensors there, every array bitwise the
+    JAX package's numpy build, every scalar equal: served and keep_all
+    indexes, a coarse grid (12) whose cell borders leaves straddle, an f64
+    threshold (numpy compares in f64 then)."""
+    tree = trees[name]
+    ref = J.build_tile_index(tree, thresh, grid_c=grid_c, keep_all=keep_all)
+    out = P.build_tile_index(tree, thresh, grid_c=grid_c, keep_all=keep_all, device="cpu")
+    assert set(out) == set(ref) and ref["n_kept"] > 0
+    # Leaves over a coarse cell border are replicated (keep_all: large empty ones).
+    assert (ref["n_instances"] > ref["n_kept"]) == (keep_all or grid_c == 12)
+    for k, a in ref.items():
+        b = out[k]
+        if np.ndim(a):
+            a = np.asarray(a)
+            assert isinstance(b, torch.Tensor) and b.device.type == "cpu", k
+            assert b.numpy().dtype == a.dtype and b.shape == a.shape, k
+            np.testing.assert_array_equal(b.numpy(), a, err_msg=k)
+        else:
+            assert int(b) == b == a, k
+
+
+def test_index_past_the_int32_row_limit_raises(trees, monkeypatch):
+    """The only limit on an index's size is its int32 row ids: an index of
+    MAX_INDEX_ROWS rows or more is refused, with the limit named (here a
+    lowered limit stands in for 2^31)."""
+    out = P.build_tile_index(trees["sh16"], 1e-2, grid_c=GRID_C)
+    rows = out["soa"].shape[0] * out["blk_quantum"]  # 3 * npad
+    monkeypatch.setattr(P, "MAX_INDEX_ROWS", rows)
+    with pytest.raises(ValueError, match=f"tile index too large: 3\\*npad = {rows} rows, "
+                       f"the limit is {rows - 1}: row ids .* are int32"):
+        P.build_tile_index(trees["sh16"], 1e-2, grid_c=GRID_C)
+    monkeypatch.setattr(P, "MAX_INDEX_ROWS", rows + 1)
+    assert P.build_tile_index(trees["sh16"], 1e-2, grid_c=GRID_C)["soa"].shape == out["soa"].shape
+
+
 def test_index_from_jax(renderers):
     jr, pr = renderers["sh1"]
     idx = P.index_from_jax(jr.index)
@@ -195,6 +235,99 @@ def test_tile_inputs_match_jax(renderers, pose):
     assert int(np.asarray(ref[0][0])[:, 0, 0].sum()) > 0  # the frame has pieces
     for a, b in zip(ref[1:], out[1:]):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("offset", [2**25, 2**27 + 3 * 2**20])
+def test_phase1_row_ids_past_2_24_are_exact(renderers, offset):
+    """Phase 1 on an index whose copies start `offset` rows further on (its
+    base shifted, a quantum-aligned offset at or past 2^25; the block bboxes
+    shifted with it, and no soa): every piece descriptor (c0, lo, hi) is
+    the unshifted one plus the offset, exactly, and the masks, metas, rays
+    and counts are unchanged."""
+    _, pr = renderers["sh16"]
+    res, w1cap = 48, 8
+    c2ws, focal = _poses(3, res)
+    idx = pr.index
+    q = pr.quantum
+    assert offset % q == 0 and offset >= 2**25
+    base = idx["base"] + offset
+    bbox = torch.cat([torch.zeros((offset // q, 8), dtype=torch.float32), idx["blk_bbox"]])
+    fn = pr.make_tile_inputs_fn(res, res, focal, pr.rcap, w1cap, pr.ccap)
+    for c2w in c2ws:
+        ref = fn(c2w, idx["csr"], idx["base"], pr.extra_data, idx["blk_bbox"])
+        out = fn(c2w, idx["csr"], base, pr.extra_data, bbox)
+        nck = ref[0][0][:, 0, 0]
+        assert int(nck.sum()) > 0
+        kept = torch.arange(ref[0][1].shape[-1])[None] < nck[:, None]
+        for k in (1, 2, 3):  # c0, lo, hi: the kept pieces' shifted, the rest 0
+            want = torch.where(kept, ref[0][k][:, 0].long() + offset, 0)
+            assert out[0][k].dtype == torch.int32
+            np.testing.assert_array_equal(out[0][k][:, 0].long().numpy(), want.numpy())
+        assert int(out[0][2][:, 0].max()) >= 2**25
+        for k in (0, 4, 5, 6, 7, 8, 9):  # meta, mask, o, invd, aux, mdir, basis
+            np.testing.assert_array_equal(out[0][k].numpy(), ref[0][k].numpy())
+        for a, b in zip(ref[1:], out[1:]):
+            np.testing.assert_array_equal(b.numpy(), a.numpy())
+
+
+def test_rows_is_the_live_rows_of_the_kept_pieces(renderers):
+    """A traced frame's `tile.inputs` `rows` count: the live rows its kept
+    pieces hand to the kernel, as numpy recounts them from the descriptors
+    (|[max(lo, c0), min(hi, c0 + quantum))| a kept piece), beside `pieces`."""
+    from plenoctree_tpu_torch.utils import tracing
+
+    _, pr = renderers["sh16"]
+    res = 41
+    c2ws, focal = _poses(1, res)
+    r = P.TileRenderer(pr.tree, step_size=1e-4, grid_c=GRID_C, device="cpu", index=pr.index)
+    r.render_persp(c2ws[0], res, res, focal)  # the caps settle
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        r.render_persp(c2ws[0], res, res, focal)
+    counts = tracing.window()["by_name"]["tile.inputs"]["counts"]
+    idx = r.index
+    p2 = r.make_tile_inputs_fn(res, res, focal, r.rcap, r.w1cap, r.ccap)(
+        c2ws[0], idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])[0]
+    nck, c0, lo, hi = (a.numpy().astype(np.int64) for a in (p2[0][:, 0, 0], *p2[1:4]))
+    rows = pieces = 0
+    for t in range(nck.shape[0]):
+        for p in range(nck[t]):
+            a, b = c0[t, 0, p], c0[t, 0, p] + r.quantum
+            rows += max(0, min(hi[t, 0, p], b) - max(lo[t, 0, p], a))
+            pieces += 1
+    assert pieces > 0 and rows > pieces
+    assert counts == {"pieces": pieces, "rows": rows}
+
+
+@pytest.mark.parametrize("depth,az", [(5, 4.4), (6, 2.5)])
+def test_frames_of_blob_trees_match_the_plain_reference(depth, az):
+    """TileRenderer's u8 frame of the benchmark's seeded SH16 blob tree at
+    depth 5 and 6 (96x96 on its orbit) against the plain reference
+    (benchmark/reference/octree_ref.py, f64) at every pixel: the share of
+    channels that differ within the sh16 serving cell's limit."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from benchmark import port_inputs, poses, run
+    from benchmark import scene as scene_lib
+    from benchmark.reference import octree_ref
+
+    cell, cfg, tr = run.load_cell("sh16-serve-800", {"config": {"tree": {"depth": depth}}})
+    seed, dev, res = 2**31 + 77, torch.device("cpu"), 96
+    tree, _ = port_inputs.scene_tree(cfg, seed, dev)
+    kw = dict(step_eps=cfg["tree"]["step_size"], sigma_thresh=tr["sigma_thresh"],
+              stop_thresh=tr["stop_thresh"])
+    r = P.TileRenderer(tree, step_size=kw["step_eps"], sigma_thresh=kw["sigma_thresh"],
+                       stop_thresh=kw["stop_thresh"], grid_c=tr["grid_c"], output="u8",
+                       device="cpu")
+    c2w = poses.orbit_pose(az, tr["orbit_radius"], tr["orbit_height"])
+    fx = tr["focal_factor"] * res
+    img = torch.as_tensor(r.render_persp(c2w, res, res, fx).reshape(-1, 3))
+    sc = scene_lib.reference_scene(cfg, seed, dev, torch.float64)
+    ref = octree_ref.to_u8(octree_ref.render(sc, c2w, res, res, fx, torch.arange(res * res), **kw))
+    assert (ref < 255).any(1).float().mean() > 0.3  # the blobs fill much of the frame
+    off = float((img != ref).float().mean())
+    assert off <= cell["limits"]["pixel_off_share"], off
 
 
 @pytest.mark.parametrize("name", ["sh1", "sh16"])

@@ -178,18 +178,61 @@ def test_pieces_is_the_chunks_handed_to_the_kernel(tree):
     idx = r.index
     fn = r.make_tile_inputs_fn(RES, RES, FOCAL, r.rcap, r.w1cap, r.ccap)
     p2_args, _, _, _ = fn(c2w, idx["csr"], idx["base"], r.extra_data, idx["blk_bbox"])
-    nck = int(p2_args[0][:, 0, 0].sum())
+    nck_t = p2_args[0][:, 0, 0].contiguous()
+    nck = int(nck_t.sum())
+    pieces = p2_args[1:4]
+    rows = int(tile_render._live_rows(*pieces, r.quantum).sum())
     off = _ops(lambda: r.render_persp(c2w, RES, RES, FOCAL))
     with profile(activities=[ProfilerActivity.CPU]):
         on = _ops(lambda: r.render_persp(c2w, RES, RES, FOCAL))
     w = tracing.window()
-    assert nck > 0 and w["by_name"]["tile.inputs"]["counts"] == {"pieces": nck}
-    # Traced, a frame issues one more op than off (the sum), and the spans'
-    # profiler ranges.
+    assert nck > 0 and w["by_name"]["tile.inputs"]["counts"] == {"pieces": nck, "rows": rows}
+    # Traced, a frame issues the ops of its two counts more than off (the
+    # pieces' sum, the live rows'), and the spans' profiler ranges.
+    counts = (_ops(lambda: nck_t.sum())
+              + _ops(lambda: tile_render._live_rows(*pieces, r.quantum).sum()))
     extra = on - off
-    assert not off - on and extra.pop("aten.sum.default") == 1
-    assert set(extra) <= {"profiler._record_function_enter_new.default",
-                          "profiler._record_function_exit._RecordFunction"}
+    assert not off - on
+    for op in ("profiler._record_function_enter_new.default",
+               "profiler._record_function_exit._RecordFunction"):
+        extra.pop(op)
+    assert extra == counts and counts["aten.sum.default"] == 2
+
+
+def test_the_index_span_counts_rows_and_bytes(tree, monkeypatch):
+    """`tile.index`: a renderer's set-up, its index built (or injected)
+    and moved to the device, counting the index's rows (3 * npad) and the
+    device soa's bytes as host ints. Off, it records nothing and enters no
+    profiler range."""
+    before = tracing.window()["records"]
+    with monkeypatch.context() as m:
+        m.setattr(tracing._profiler, "record_function",
+                  lambda *a, **k: (_ for _ in ()).throw(AssertionError("entered")))
+        r = _renderer(tree)
+    assert tracing.window()["records"] == before
+    soa = r.index["soa"]
+    want = {"rows": soa.shape[0] * soa.shape[2], "bytes": soa.numel() * 4}
+    assert want["rows"] % (3 * tile_render.COPY_PAD) == 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        built = _renderer(tree)
+        injected = tile_render.TileRenderer(tree, grid_c=16, index=r.index, device="cpu")
+    recs = [x for x in tracing.window()["records"] if x["name"] == "tile.index"]
+    assert [x["counts"] for x in recs] == [want, want]
+    assert all(x["parent"] is None for x in recs)
+    assert all(isinstance(v, int) for v in recs[0]["counts"].values())
+    for x in (built, injected):
+        np.testing.assert_array_equal(x.index["soa"].numpy(), soa.numpy())
+
+
+def test_live_rows_per_piece_reads_nothing_without_rows(monkeypatch):
+    """A program whose `tile.inputs` spans count pieces but no rows (before
+    the count existed) gives no reading."""
+    read = bench_run.load_reader("serve.live_rows_per_piece")
+    log = [dict(x, counts={k: v for k, v in x["counts"].items() if k != "rows"})
+           for x in _synthetic_log()]
+    monkeypatch.setattr(tracing, "window", lambda: tracing.summarize(log))
+    assert read(_view()) is None
+    assert bench_run.load_reader("serve.pieces_per_frame")(_view()) == 120
 
 
 def test_a_traced_optimizer_step(tree):
@@ -297,6 +340,7 @@ READERS = {
     "train.trunk_rows_per_call": (300 + 300 + 90) * 2 / 6,
     "opt.pieces_per_step": 500 / 1,
     "serve.graph_replays_per_frame": 1 / 2,
+    "serve.live_rows_per_piece": (9000 + 11000) / (100 + 140),
 }
 
 
@@ -309,12 +353,12 @@ def _synthetic_log():
                      "t0_ns": int(t0 * 1e9), "t1_ns": int(t1 * 1e9), "counts": counts})
         return i
 
-    for k, (dur, pieces) in enumerate(((0.004, 100), (0.006, 140))):
+    for k, (dur, pieces, rows) in enumerate(((0.004, 100, 9000), (0.006, 140, 11000))):
         f = add("tile.frame", None, k, k + 0.5)
         # The first frame captures the frame graph, the second replays it,
         # then its caps grow and its re-render runs eagerly.
         rr = add("tile.render", f, k, k + 0.1, **{("replays" if k else "captures"): 1})
-        add("tile.inputs", rr, k, k + dur, pieces=torch.tensor(pieces))
+        add("tile.inputs", rr, k, k + dur, pieces=torch.tensor(pieces), rows=torch.tensor(rows))
         add("tile.fetch", f, k + 0.1, k + 0.2)
     add("tile.render", f, 1.3, 1.4)
     add("tile.render", None, 5, 5.1, replays=1)  # in no frame
@@ -326,8 +370,8 @@ def _synthetic_log():
         add("nerf.backward", s, 10.02 + k, 10.025 + k)
         add("nerf.update", s, 10.03 + k, 10.033 + k)
     st = add("tile_opt.step", None, 20, 21)
-    add("tile.inputs", st, 20, 20.1, pieces=500)
-    add("tile.inputs", None, 30, 30.1, pieces=7)  # in no frame and no step
+    add("tile.inputs", st, 20, 20.1, pieces=500, rows=60000)
+    add("tile.inputs", None, 30, 30.1, pieces=7, rows=800)  # in no frame and no step
     return recs
 
 
