@@ -10,6 +10,14 @@ scaled by the log-lerp lr evaluated at the step before its increment.
 Random draws come from an explicit torch.Generator; `draws` may hand them
 in ready-made (the model's keys plus 'sp_points' [n, 3]).
 
+On one CUDA device the train step captures itself as CUDA graphs once its
+inputs' shapes come back and replays them (`_StepGraph`): three graph
+launches where the eager step makes some 1,300 launch calls, the same
+kernels in the same order, bitwise the eager step. Nothing in the step
+waits for the device (ops/: the posenc scales made once, the PSNR's ln 10
+filled on the device, the transmittance's backward without ATen's test
+for a zero factor), so the host runs up to a step ahead of the card.
+
 Across devices (parallel/mesh.py): with a process group the train step
 averages the gradients of each rank's equal share of the global batch by
 one all-reduce, which is the gradient of the global-mean loss the JAX
@@ -27,6 +35,7 @@ around a TPU-relay miscompile.
 
 import collections
 import copy
+import os
 import time
 import weakref
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from plenoctree_tpu_torch.data.rays import Rays
+from plenoctree_tpu_torch.kernels import fused_mlp
 from plenoctree_tpu_torch.ops.metrics import compute_psnr
 from plenoctree_tpu_torch.parallel import mesh as mesh_lib
 from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
@@ -57,7 +67,16 @@ def loss_and_grads(model, batch, cfg, generator=None, draws=None, sp_generator=N
     draws['sp_points'], else from sp_generator (else generator). Traced as
     `nerf.forward` (the model's `nerf.coarse` / `nerf.fine`, `nerf.sparsity`,
     the loss terms) and `nerf.backward`."""
-    draws = draws or {}
+    params = dict(model.named_parameters())
+    stats, total = _forward(model, batch, cfg, generator, draws or {}, sp_generator)
+    with tracing.span("nerf.backward"):
+        grads = torch.autograd.grad(total, list(params.values()))
+    return stats, dict(zip(params, grads))
+
+
+def _forward(model, batch, cfg, generator, draws, sp_generator):
+    """(Stats, the total loss) at the model's parameters: loss_and_grads'
+    forward, traced as `nerf.forward`."""
     params = dict(model.named_parameters())
     rays = batch["rays"]
     pixels = batch["pixels"][..., :3]
@@ -89,15 +108,13 @@ def loss_and_grads(model, batch, cfg, generator=None, draws=None, sp_generator=N
         else:  # the sharded columns' squares summed over the model axis
             weight_l2 = tp.weight_l2(params)
         total = loss + loss_c + loss_sp + cfg.weight_decay_mult * weight_l2
-    with tracing.span("nerf.backward"):
-        grads = torch.autograd.grad(total, list(params.values()))
-    with torch.no_grad():
-        stats = Stats(
-            loss=loss.detach(), psnr=compute_psnr(loss.detach()), loss_c=loss_c.detach(),
-            psnr_c=compute_psnr(loss_c.detach()) if len(ret) > 1 else zero,
-            weight_l2=weight_l2.detach(), loss_sp=loss_sp.detach(),
-        )
-    return stats, dict(zip(params, grads))
+        with torch.no_grad():
+            stats = Stats(
+                loss=loss.detach(), psnr=compute_psnr(loss.detach()), loss_c=loss_c.detach(),
+                psnr_c=compute_psnr(loss_c.detach()) if len(ret) > 1 else zero,
+                weight_l2=weight_l2.detach(), loss_sp=loss_sp.detach(),
+            )
+    return stats, total
 
 
 def make_train_step(model, cfg, group=None):
@@ -118,25 +135,54 @@ def make_train_step(model, cfg, group=None):
     collectives inside the forward and backward;
     `train_step.model_collectives_ms()` gives their median total per step.
 
-    Traced as one `nerf.step` span (request id: the state's step) over
-    loss_and_grads' spans, `nerf.allreduce` (with a group) and
-    `nerf.update` (Adam)."""
+    On one CUDA device, with no group and no model axis, a step whose
+    `_graph_key` an eager step had just before (one of the last
+    _MAX_GRAPHS eager steps) captures the step as CUDA graphs
+    (`_StepGraph`), and later steps under that key replay them, bitwise
+    the eager step; at most _MAX_GRAPHS keys keep their graphs. The CPU, a
+    group and a model axis run eagerly.
+
+    Traced as one `nerf.step` span (request id: the state's step; counts
+    `replays` = 1 on a step that replayed its graphs, `captures` = 1 on
+    one that captured them) over loss_and_grads' spans, `nerf.allreduce`
+    (with a group) and `nerf.update` (Adam)."""
     schedule = lr_lib.schedule_from_config(cfg)
     timings = collections.deque(maxlen=1000)  # the last steps' all-reduce times
 
     tp = getattr(model, "tp", None)
+    graphs = collections.OrderedDict()  # _graph_key -> _StepGraph, the last used last
+    eager_keys = collections.deque(maxlen=_MAX_GRAPHS)  # the last eager steps' keys
 
     def train_step(state, batch, generator=None, draws=None, sp_generator=None):
-        with tracing.span("nerf.step", request=state.step):
-            stats, grads = loss_and_grads(model, batch, cfg, generator, draws, sp_generator)
-            if tp is not None:
-                tp.timer.end_step()
-            if group is not None:
-                with tracing.span("nerf.allreduce"):
-                    stats, grads = _reduce_over(group, cfg, stats, grads, timings)
+        draws = draws or {}
+        with tracing.span("nerf.step", request=state.step) as s:
+            key = None
+            if group is None and tp is None:
+                key = _graph_key(model, state, batch, draws, generator, sp_generator)
+            graph = graphs.get(key) if key is not None else None
+            if graph is not None:
+                graphs.move_to_end(key)
+                s.count(replays=1)
+            elif key is not None and key in eager_keys:
+                s.count(captures=1)
+                graph = graphs[key] = _StepGraph(model, cfg, state, batch, draws, generator,
+                                                 sp_generator)
+                if len(graphs) > _MAX_GRAPHS:
+                    graphs.popitem(last=False)  # its graphs and memory pool go
             lr = schedule(state.step)
-            with tracing.span("nerf.update"):
-                ckpt_utils.adam_update(state, grads, lr)
+            if graph is not None:
+                stats = graph.replay(state, batch, draws, lr)
+            else:
+                if key is not None:
+                    eager_keys.append(key)
+                stats, grads = loss_and_grads(model, batch, cfg, generator, draws, sp_generator)
+                if tp is not None:
+                    tp.timer.end_step()
+                if group is not None:
+                    with tracing.span("nerf.allreduce"):
+                        stats, grads = _reduce_over(group, cfg, stats, grads, timings)
+                with tracing.span("nerf.update"):
+                    ckpt_utils.adam_update(state, grads, lr)
             state.step += 1
         return state, stats, lr
 
@@ -146,10 +192,117 @@ def make_train_step(model, cfg, group=None):
         return float(np.median([t() if callable(t) else t for t in timings]))
 
     train_step.all_reduce_ms = all_reduce_ms
+    train_step.graphs = graphs  # the captured steps, by key
     # The model axis's gathers and all-reduces per step (median ms), under
     # tensor parallelism.
     train_step.model_collectives_ms = tp.timer.median_ms if tp is not None else (lambda: None)
     return train_step
+
+
+_MAX_GRAPHS = 2  # captured steps kept per train step function (a pool each)
+
+
+def _graph_key(model, state, batch, draws, generator, sp_generator):
+    """What a captured step depends on besides the values it copies in, or
+    None where the step is not captured (parameters off a CUDA device):
+    the shapes, dtypes and devices of the batch and of the draws handed in,
+    the generators the other draws come from, the addresses of the
+    parameters and of the Adam moments, and the model's kernel switches
+    (models/nerf.py)."""
+    params = list(model.parameters())
+    if not params or params[0].device.type != "cuda":
+        return None
+
+    def sig(t):
+        return tuple(t.shape), t.dtype, t.device
+
+    opt = state.opt_state
+    return (
+        sig(batch["pixels"]), tuple(sig(r) for r in batch["rays"]),
+        tuple((k, sig(v)) for k, v in sorted(draws.items())), generator, sp_generator,
+        tuple(p.data_ptr() for p in params),
+        tuple(t.data_ptr() for d in (state.params, opt["mu"], opt["nu"]) for t in d.values()),
+        os.environ.get("PN_POSENC_IN_KERNEL"), os.environ.get("PN_SH_IN_KERNEL"),
+    )
+
+
+class _StepGraph:
+    """A train step on one CUDA device, captured as CUDA graphs and replayed
+    between static buffers: the forward (`_forward`, up to the loss terms
+    and the stats), the backward (`torch.autograd.grad`, captured as
+    torch.cuda.make_graphed_callables captures it) and the Adam update
+    (`adam_apply`), one graph each so that each keeps its span, in one
+    memory pool. The batch and the draws are copied into device buffers
+    the graphs own; the host scalars of the update (bias corrections, lr)
+    through a pinned buffer. The generators the draws not handed in come
+    from are registered with the forward graph, so a replay draws what the
+    eager step draws from their state. The same kernels run in the same
+    order on the same operands as in the eager step, so a replayed step is
+    bitwise the eager step. Capture it only after an eager step under the
+    same key, which builds what the step builds lazily (the trunk's weight
+    stream index, the posenc scales, cuBLAS workspaces): capturing runs no
+    work, and the capture's own step is a replay."""
+
+    def __init__(self, model, cfg, state, batch, draws, generator, sp_generator):
+        named = dict(model.named_parameters())
+        dev = self.dev = next(iter(named.values())).device
+        self.batch = {"pixels": batch["pixels"].clone(),
+                      "rays": Rays(*[r.clone() for r in batch["rays"]])}
+        self.draws = {k: v.clone() for k, v in draws.items()}
+        self.host = torch.zeros(3, dtype=torch.float32, pin_memory=True)
+        self.scalars = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.copied = torch.cuda.Event()  # the pinned scalars may be rewritten
+        self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        for g in {id(g): g for g in (generator, sp_generator) if g is not None}.values():
+            self.graphs[0].register_generator_state(g)
+        launches = fused_mlp.launch_counts()
+        with torch.cuda.device(dev):
+            with tracing.tape() as tape, torch.cuda.graph(self.graphs[0]):
+                stats, total = _forward(model, self.batch, cfg, generator, self.draws,
+                                        sp_generator)
+                self.stats = torch.stack(list(stats))
+            pool = self.graphs[0].pool()
+            with torch.cuda.graph(self.graphs[1], pool=pool):
+                self.grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
+            opt = state.opt_state
+            with torch.cuda.graph(self.graphs[2], pool=pool):
+                ckpt_utils.adam_apply(state.params, self.grads, opt["mu"], opt["nu"],
+                                      self.scalars)
+        # What a replay re-emits and counts: the trunk calls it launches.
+        self.trunk = [counts for name, counts in tape if name == "nerf.trunk"]
+        self.launches = [b - a for a, b in zip(launches, fused_mlp.launch_counts())]
+        fused_mlp.add_launch_counts([-d for d in self.launches])
+
+    def replay(self, state, batch, draws, lr):
+        """Enqueue one step at the state's count and `lr` on `batch` and
+        `draws`; returns its Stats, copies of the graph's."""
+        count = state.opt_state["count"] + 1
+        with torch.cuda.device(self.dev):
+            # Waits until the device has begun the last step: the host runs
+            # at most a step ahead, and the wait is in no phase's span.
+            self.copied.synchronize()
+            self.host.numpy()[...] = ckpt_utils.adam_scalars(count, lr)
+            with tracing.span("nerf.forward") as s:
+                self.scalars.copy_(self.host, non_blocking=True)
+                self.copied.record()
+                self.batch["pixels"].copy_(batch["pixels"])
+                for dst, src in zip(self.batch["rays"], batch["rays"]):
+                    dst.copy_(src)
+                for k, v in draws.items():
+                    self.draws[k].copy_(v)
+                if s:
+                    for counts in self.trunk:
+                        with tracing.span("nerf.trunk", **counts):
+                            pass
+                self.graphs[0].replay()
+            with tracing.span("nerf.backward"):
+                self.graphs[1].replay()
+            with tracing.span("nerf.update"):
+                self.graphs[2].replay()
+            stats = self.stats.clone()
+        state.opt_state["count"] = count
+        fused_mlp.add_launch_counts(self.launches)
+        return Stats(*stats.unbind())
 
 
 def _reduce_over(group, cfg, stats, grads, timings):

@@ -13,7 +13,9 @@ import torch.nn.functional as F
 def compute_psnr(mse):
     """PSNR assuming max pixel value 1.0 (tensor or Python float in, tensor out)."""
     mse = torch.as_tensor(mse, dtype=torch.float32)
-    ln10 = torch.log(torch.tensor(10.0, dtype=torch.float32, device=mse.device))
+    # Filled on the device: a copy from the host would wait for a GPU (and
+    # cannot be captured in a CUDA graph).
+    ln10 = torch.log(torch.full((), 10.0, dtype=torch.float32, device=mse.device))
     return -10.0 * torch.log(mse) / ln10
 
 

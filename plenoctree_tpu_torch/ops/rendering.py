@@ -30,8 +30,7 @@ def volumetric_rendering(rgb, sigma, z_vals, dirs, white_bkgd):
         sigma = sigma[..., 0]
     alpha = 1.0 - torch.exp(-sigma * dists)
     trans = torch.cat(
-        [torch.ones_like(alpha[..., :1]), torch.cumprod(1.0 - alpha[..., :-1] + eps, dim=-1)],
-        dim=-1,
+        [torch.ones_like(alpha[..., :1]), _CumProd.apply(1.0 - alpha[..., :-1] + eps)], dim=-1
     )
     weights = alpha * trans
     comp_rgb = torch.einsum("...s,...sc->...c", weights, rgb)
@@ -45,3 +44,24 @@ def volumetric_rendering(rgb, sigma, z_vals, dirs, white_bkgd):
     if white_bkgd:
         comp_rgb = comp_rgb + (1.0 - acc[..., None])
     return comp_rgb, disp, acc, weights
+
+
+class _CumProd(torch.autograd.Function):
+    """torch.cumprod over the last axis, with the backward ATen takes when no
+    factor is zero: the reversed cumulative sum of output * grad, over the
+    factors; bitwise ATen's gradient there. ATen first tests the factors
+    for a zero by copying a flag to the host, which waits for the device
+    and cannot be captured in a CUDA graph (engine.py's train step). The
+    transmittance's factors 1 - alpha + eps are at least eps (alpha in
+    [0, 1]), so the test is left out."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)

@@ -60,16 +60,20 @@ def create_train_state(model):
     return TrainState(step=0, params=params, opt_state={"count": 0, "mu": zeros(), "nu": zeros()})
 
 
+def _bias_corrections(count):
+    """(1 - b1^count, 1 - b2^count), in f32 arithmetic."""
+    f32 = np.float32
+    return f32(1) - f32(B1) ** f32(count), f32(1) - f32(B2) ** f32(count)
+
+
 @torch.no_grad()
 def adam_update(state, grads, lr):
     """One optax.adam(1.0) step scaled by lr, applied in place:
     p += lr * -(mu_hat / (sqrt(nu_hat) + eps))."""
     opt = state.opt_state
     count = opt["count"] + 1
-    f32 = np.float32
-    bc1 = float(f32(1) - f32(B1) ** f32(count))
-    bc2 = float(f32(1) - f32(B2) ** f32(count))
-    lr = float(f32(lr))
+    bc1, bc2 = map(float, _bias_corrections(count))
+    lr = float(np.float32(lr))
     for k, p in state.params.items():
         g = grads[k]
         mu, nu = opt["mu"][k], opt["nu"][k]
@@ -78,6 +82,33 @@ def adam_update(state, grads, lr):
         u = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
         p.add_(u * -1.0 * lr)
     opt["count"] = count
+
+
+def adam_scalars(count, lr):
+    """The host scalars of the Adam step that takes the count to `count`,
+    as `adam_apply` reads them: f32 [1 / (1 - b1^count), 1 / (1 - b2^count),
+    lr]."""
+    bc1, bc2 = _bias_corrections(count)
+    f32 = np.float32
+    return np.array([f32(1) / bc1, f32(1) / bc2, f32(lr)], np.float32)
+
+
+@torch.no_grad()
+def adam_apply(params, grads, mu, nu, scalars):
+    """adam_update's arithmetic with the step's scalars read from the device
+    (`scalars`: adam_scalars' three values in a device tensor), so that a
+    captured CUDA graph can replay it; the count is the caller's to
+    advance. On a CUDA device it is bitwise adam_update: ATen divides a
+    tensor by a host scalar there as a product with the scalar's f32
+    reciprocal, which is what mu_hat and nu_hat take here."""
+    inv_bc1, inv_bc2, lr = scalars.unbind()
+    for k, p in params.items():
+        g = grads[k]
+        m, v = mu[k], nu[k]
+        m.mul_(B1).add_(g * (1 - B1))
+        v.mul_(B2).add_(g.square() * (1 - B2))
+        u = (m * inv_bc1) / ((v * inv_bc2).sqrt() + EPS)
+        p.add_(u * -1.0 * lr)
 
 
 def _to_tree(state):

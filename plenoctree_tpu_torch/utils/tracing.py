@@ -18,6 +18,10 @@ start and end (time.perf_counter_ns) and counts. Parents are kept per
 thread, so a span opened on autograd's worker thread (the tile backward's)
 has none; a span without a request id takes its parent's.
 
+`tape()` records the name and counts of every span opened inside it,
+traced or not, so that the replays of a captured CUDA graph can re-emit
+the spans its capture opened (engine.py's train step).
+
 Counts are host numbers or 0-d device tensors, read only by `window()`. The
 log holds at most MAX_RECORDS records; later ones are counted as dropped. A
 traced session starts at the first span recorded after tracing was off,
@@ -31,6 +35,7 @@ record_function entered and left, 11.7 us; `span`, 0.67 us (0.83 us with
 one count); contextlib.nullcontext, 0.82 us.
 """
 
+import contextlib
 import itertools
 import threading
 import time
@@ -71,6 +76,7 @@ class _Log:
         self.stale = True  # set by a span with tracing off
         self.ids = itertools.count(1)
         self.local = threading.local()
+        self.tape = None  # while `tape` is open: (name, counts) of each span opened
 
     def stack(self):
         s = getattr(self.local, "stack", None)
@@ -132,10 +138,23 @@ def span(name, request=None, **counts):
     """A context manager around one layer's work; see the module docstring.
     `request` ties the spans of one frame or step together (children
     inherit it)."""
+    if _log.tape is not None:
+        _log.tape.append((name, dict(counts)))
     if not _profiler._is_profiler_enabled:
         _log.stale = True
         return _OFF
     return _Span(name, request, counts)
+
+
+@contextlib.contextmanager
+def tape():
+    """Yields a list that gets (name, counts) of every span opened while it
+    is open, on any thread, traced or not."""
+    outer, _log.tape = _log.tape, []
+    try:
+        yield _log.tape
+    finally:
+        _log.tape = outer
 
 
 def _number(v):

@@ -1186,3 +1186,143 @@ def test_the_depth8_sh16_tree_serves_through_replay_within_its_cells_limit():
         off += int((got != ref).sum())
         total += ref.numel()
     assert off / total <= cell["limits"]["pixel_off_share"], off / total
+
+
+# -- train steps replayed from captured CUDA graphs ----------------------------
+
+TRAIN_B, TRAIN_PTS = 512, 1000
+
+
+def _train_cfg(head, batch=TRAIN_B):
+    from plenoctree_tpu_torch.utils.config import default_config
+
+    kw = dict(sh_deg=3) if head == "sh16" else dict(sh_deg=-1, sg_dim=25)
+    return default_config(
+        dataset="blender", batch_size=batch, num_coarse_samples=64, num_fine_samples=128,
+        sparsity_npoints=TRAIN_PTS, compute_dtype="bfloat16", use_pallas=True,
+        use_viewdirs=False, weight_decay_mult=1e-4, **kw,
+    )
+
+
+def _train_feed(k, batch=TRAIN_B, draws=True):
+    """Step k's batch (rays from a sphere of radius 4 toward the origin) and,
+    with `draws`, its draws, made on the card from k."""
+    from plenoctree_tpu_torch.data.rays import Rays
+
+    g = torch.Generator(device="cuda").manual_seed(1000 + k)
+    rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")
+    o = torch.nn.functional.normalize(rand(batch, 3) - 0.5, dim=-1) * 4.0
+    d = torch.nn.functional.normalize(-o + rand(batch, 3) - 0.5, dim=-1)
+    out = {"rays": Rays(o, d, d), "pixels": rand(batch, 3)}
+    if not draws:
+        return out, None
+    return out, {"t_rand": rand(batch, 64), "u": rand(batch, 129),
+                 "sp_points": rand(TRAIN_PTS, 3) * 3.0 - 1.5}
+
+
+def _train_run(cfg, plan, graphed, monkeypatch, restore_at=None, tmp_path=None):
+    """Train steps on the card from one init: `plan` holds (batch size,
+    whether draws are handed in) per step; without draws, generators
+    reseeded every step as the train CLI does. graphed=False keeps every
+    step eager (the step's own eager path). With `restore_at`, the state is
+    saved before that step and restored into a fresh state (new moments;
+    the old state kept alive, so their addresses are new). Returns (the
+    Stats of every step, params, mu, nu as host tensors, the step
+    function)."""
+    from plenoctree_tpu_torch import engine
+    from plenoctree_tpu_torch.models.nerf import construct_nerf
+    from plenoctree_tpu_torch.utils import checkpoints as ckpt
+
+    model = construct_nerf(cfg, seed=3).to("cuda")
+    state = ckpt.create_train_state(model)
+    with monkeypatch.context() as m:
+        if not graphed:
+            m.setattr(engine, "_graph_key", lambda *a: None)
+        step = engine.make_train_step(model, cfg)
+        gen, sp_gen = torch.Generator(device="cuda"), torch.Generator(device="cuda")
+        stats, kept = [], []
+        for k, (b, with_draws) in enumerate(plan):
+            if k == restore_at:
+                ckpt.save_checkpoint(str(tmp_path / ("g" if graphed else "e")), state, k)
+                kept.append(state)
+                state = ckpt.restore_checkpoint(str(tmp_path / ("g" if graphed else "e")),
+                                                ckpt.create_train_state(model))
+            batch, draws = _train_feed(k, b, with_draws)
+            gen.manual_seed(100 + k)
+            sp_gen.manual_seed(200 + k)
+            if with_draws:
+                state, s, _ = step(state, batch, draws=draws)
+            else:
+                state, s, _ = step(state, batch, gen, sp_generator=sp_gen)
+            stats.append(s)
+        torch.cuda.synchronize()
+    host = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    opt = state.opt_state
+    return stats, host(state.params), host(opt["mu"]), host(opt["nu"]), step
+
+
+def _stats_array(stats):
+    return torch.stack([torch.stack(list(s)) for s in stats]).cpu()
+
+
+def _check_replay_bitwise(cfg, plan, monkeypatch, **kw):
+    """Two eager runs and one graphed run of `plan`: the eager runs equal
+    bit for bit, and the graphed run equals them bit for bit in every
+    step's Stats, the parameters and both moments. Returns the graphed
+    run's step function and Stats."""
+    runs = [_train_run(cfg, plan, g, monkeypatch, **kw) for g in (False, False, True)]
+    eager, again, graphed = ([{"": _stats_array(r[0])}, *r[1:4]] for r in runs)
+    for name, a, b, c in zip(("stats", "params", "mu", "nu"), eager, again, graphed):
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"two eager runs differ: {name} {k}"
+            assert torch.equal(c[k], a[k]), f"the replayed run differs: {name} {k}"
+    return runs[2][4], runs[2][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head,draws", [("sh16", True), ("sg25", True), ("sh16", False)])
+def test_replayed_train_steps_are_bitwise_the_eager_steps(head, draws, monkeypatch):
+    """Five steps: the first eager, the second captured, the rest replayed,
+    bitwise five eager steps, with the draws handed in or drawn from
+    generators reseeded each step; the Stats of consecutive replays are
+    distinct tensors that keep their values."""
+    _need_cuda()
+    step, stats = _check_replay_bitwise(_train_cfg(head), [(TRAIN_B, draws)] * 5, monkeypatch)
+    assert len(step.graphs) == 1
+    ptrs = {s.loss.data_ptr() for s in stats[2:]}
+    assert len(ptrs) == 3 and len({id(s) for s in stats}) == 5
+
+
+@pytest.mark.gpu
+def test_a_half_batch_after_a_full_one_captures_a_second_graph(monkeypatch):
+    _need_cuda()
+    plan = [(TRAIN_B, True)] * 3 + [(TRAIN_B // 2, True)] * 3 + [(TRAIN_B, True)]
+    step, _ = _check_replay_bitwise(_train_cfg("sh16"), plan, monkeypatch)
+    assert len(step.graphs) == 2
+
+
+@pytest.mark.gpu
+def test_a_restored_checkpoint_is_recaptured(monkeypatch, tmp_path):
+    """A state restored between steps (new moment tensors) runs eagerly,
+    captures anew and replays, bitwise the eager steps."""
+    _need_cuda()
+    step, _ = _check_replay_bitwise(_train_cfg("sh16"), [(TRAIN_B, True)] * 6, monkeypatch,
+                                    restore_at=3, tmp_path=tmp_path)
+    assert len(step.graphs) == 2
+
+
+@pytest.mark.gpu
+def test_cumprod_backward_is_bitwise_aten():
+    """The transmittance's cumprod (ops/rendering.py::_CumProd) gives the
+    gradient ATen's cumprod gives, on the card, for factors in [eps, 1]."""
+    _need_cuda()
+    from plenoctree_tpu_torch.ops.rendering import _CumProd
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand((4096, 191), generator=g, device="cuda") + 1e-10
+    x[:, 5] = 1e-10  # alpha = 1: the smallest factor
+    grad = torch.randn((4096, 191), generator=g, device="cuda")
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(torch.cumprod(a, -1), a, grad)
+    (gb,) = torch.autograd.grad(_CumProd.apply(b), b, grad)
+    assert torch.equal(torch.cumprod(x, -1), _CumProd.apply(x)) and torch.equal(ga, gb)

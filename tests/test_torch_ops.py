@@ -185,3 +185,21 @@ def test_parse_flags_config_then_explicit_flags(tmp_path):
     bad.write_text("not_a_flag: 1\n")
     with pytest.raises(ValueError, match="not_a_flag"):
         config.update_flags(config.default_config(config=str(bad)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_transmittance_cumprod_grad_is_atens(dtype):
+    """The transmittance's cumprod (ops/rendering.py::_CumProd) gives ATen's
+    cumprod and ATen's gradient bit for bit, for factors in [eps, 1]
+    (the smallest, alpha = 1, included); it only skips ATen's host-side
+    test for a zero factor."""
+    from plenoctree_tpu_torch.ops.rendering import _CumProd
+
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand((64, 191), generator=g) + 1e-10).to(dtype)
+    x[:, 5] = 1e-10
+    grad = torch.randn((64, 191), generator=g).to(dtype)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(torch.cumprod(a, -1), a, grad)
+    (gb,) = torch.autograd.grad(_CumProd.apply(b), b, grad)
+    assert torch.equal(torch.cumprod(x, -1), _CumProd.apply(x)) and torch.equal(ga, gb)

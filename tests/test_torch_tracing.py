@@ -276,6 +276,51 @@ def test_a_traced_train_step_and_its_rows():
     trunk = w["by_name"]["nerf.trunk"]
     assert trunk["count"] == 3 and trunk["counts"] == {"rows": B * SC + B * (SC + SF) + NPTS}
     assert "nerf.allreduce" not in w["by_name"]
+    # The CPU steps run eagerly: nothing captured, no replays counted.
+    assert names["nerf.step"]["counts"] == {} and not step.graphs
+
+
+@pytest.mark.gpu
+def test_a_replayed_train_step_keeps_its_spans_and_rows():
+    """On the card the third step under one key replays the captured step:
+    its `nerf.step` counts the replay, the forward, backward and update
+    spans lie in it, the forward re-emits the captured trunk calls with
+    their rows, and the trunk's launch counters advance by them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from plenoctree_tpu_torch.kernels import fused_mlp
+
+    cfg = default_config(dataset="blender", batch_size=B, net_depth=2, net_width=32, sh_deg=1,
+                         num_coarse_samples=SC, num_fine_samples=SF, sparsity_npoints=NPTS,
+                         randomized=True, compute_dtype="bfloat16", use_pallas=True,
+                         use_viewdirs=False)
+    model, state = get_model_state(cfg, seed=0, restore=False, device="cuda")
+    step = engine.make_train_step(model, cfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    o = torch.rand((B, 3), generator=g, device="cuda") * 0.2
+    d = torch.nn.functional.normalize(torch.rand((B, 3), generator=g, device="cuda") - 0.5,
+                                      dim=-1)
+    batch = {"rays": Rays(o - 4.0 * d, d, d), "pixels": torch.rand((B, 3), generator=g,
+                                                                     device="cuda")}
+    draws = {"t_rand": torch.rand((B, SC), generator=g, device="cuda"),
+             "u": torch.rand((B, SF + 1), generator=g, device="cuda"),
+             "sp_points": torch.rand((NPTS, 3), generator=g, device="cuda") - 0.5}
+    for _ in range(2):  # eager, then captured
+        step(state, batch, draws=draws)
+    launches = fused_mlp.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(launches, fused_mlp.launch_counts())][:2] == [3, 3]
+    w = tracing.window()
+    recs = {x["id"]: x for x in w["records"]}
+    names = {x["name"]: x for x in w["records"]}
+    assert names["nerf.step"]["counts"] == {"replays": 1} and len(step.graphs) == 1
+    for n in ("nerf.forward", "nerf.backward", "nerf.update"):
+        assert w["by_name"][n]["count"] == 1 and recs[names[n]["parent"]]["name"] == "nerf.step"
+    trunk = [x for x in w["records"] if x["name"] == "nerf.trunk"]
+    assert all(recs[x["parent"]]["name"] == "nerf.forward" for x in trunk)
+    assert [x["counts"]["rows"] for x in trunk] == [B * SC, B * (SC + SF), NPTS]
 
 
 def test_self_time_on_a_nested_log():
@@ -340,6 +385,7 @@ READERS = {
     "train.trunk_rows_per_call": (300 + 300 + 90) * 2 / 6,
     "opt.pieces_per_step": 500 / 1,
     "serve.graph_replays_per_frame": 1 / 2,
+    "train.graph_replays_per_step": 1 / 2,
     "serve.live_rows_per_piece": (9000 + 11000) / (100 + 140),
 }
 
@@ -363,7 +409,8 @@ def _synthetic_log():
     add("tile.render", f, 1.3, 1.4)
     add("tile.render", None, 5, 5.1, replays=1)  # in no frame
     for k in range(2):
-        s = add("nerf.step", None, 10 + k, 10.1 + k)
+        # The first step runs eagerly, the second replays the captured step.
+        s = add("nerf.step", None, 10 + k, 10.1 + k, **({"replays": 1} if k else {}))
         fw = add("nerf.forward", s, 10 + k, 10 + k + 0.010)
         for rows in (300, 300, 90):
             add("nerf.trunk", fw, 10 + k, 10 + k + 0.001, rows=rows)
@@ -396,6 +443,15 @@ def test_graph_replays_per_frame_reads_nothing_from_eager_frames(monkeypatch):
     count no `replays`: the reader gives no reading rather than 0."""
     read = bench_run.load_reader("serve.graph_replays_per_frame")
     log = [dict(x, counts={}) if x["name"] == "tile.render" else x for x in _synthetic_log()]
+    monkeypatch.setattr(tracing, "window", lambda: tracing.summarize(log))
+    assert read(_view()) is None
+
+
+def test_graph_replays_per_step_reads_nothing_from_eager_steps(monkeypatch):
+    """Eager steps (the CPU's, or a program without graphs) count no
+    `replays`: the reader gives no reading rather than 0."""
+    read = bench_run.load_reader("train.graph_replays_per_step")
+    log = [dict(x, counts={}) if x["name"] == "nerf.step" else x for x in _synthetic_log()]
     monkeypatch.setattr(tracing, "window", lambda: tracing.summarize(log))
     assert read(_view()) is None
 
