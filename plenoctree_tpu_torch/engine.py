@@ -11,9 +11,10 @@ Random draws come from an explicit torch.Generator; `draws` may hand them
 in ready-made (the model's keys plus 'sp_points' [n, 3]).
 
 On one CUDA device the train step captures itself as CUDA graphs once its
-inputs' shapes come back and replays them (`_StepGraph`): three graph
-launches where the eager step makes some 1,300 launch calls, the same
-kernels in the same order, bitwise the eager step. Nothing in the step
+inputs' shapes come back and replays them (`_StepGraph`, through
+utils/graphs.py): three graph launches where the eager step makes some
+1,300 launch calls, the same kernels in the same order, bitwise the eager
+step. Nothing in the step
 waits for the device (ops/: the posenc scales made once, the PSNR's ln 10
 filled on the device, the transmittance's backward without ATen's test
 for a zero factor), so the host runs up to a step ahead of the card.
@@ -43,10 +44,10 @@ import numpy as np
 import torch
 
 from plenoctree_tpu_torch.data.rays import Rays
-from plenoctree_tpu_torch.kernels import fused_mlp
 from plenoctree_tpu_torch.ops.metrics import compute_psnr
 from plenoctree_tpu_torch.parallel import mesh as mesh_lib
 from plenoctree_tpu_torch.utils import checkpoints as ckpt_utils
+from plenoctree_tpu_torch.utils import graphs as graphs_lib
 from plenoctree_tpu_torch.utils import lr as lr_lib
 from plenoctree_tpu_torch.utils import tracing
 
@@ -67,11 +68,15 @@ def loss_and_grads(model, batch, cfg, generator=None, draws=None, sp_generator=N
     draws['sp_points'], else from sp_generator (else generator). Traced as
     `nerf.forward` (the model's `nerf.coarse` / `nerf.fine`, `nerf.sparsity`,
     the loss terms) and `nerf.backward`."""
-    params = dict(model.named_parameters())
     stats, total = _forward(model, batch, cfg, generator, draws or {}, sp_generator)
     with tracing.span("nerf.backward"):
-        grads = torch.autograd.grad(total, list(params.values()))
-    return stats, dict(zip(params, grads))
+        return stats, _grads(model, total)
+
+
+def _grads(model, total):
+    """{param name: the gradient of `total`} at the model's parameters."""
+    params = dict(model.named_parameters())
+    return dict(zip(params, torch.autograd.grad(total, list(params.values()))))
 
 
 def _forward(model, batch, cfg, generator, draws, sp_generator):
@@ -136,11 +141,11 @@ def make_train_step(model, cfg, group=None):
     `train_step.model_collectives_ms()` gives their median total per step.
 
     On one CUDA device, with no group and no model axis, a step whose
-    `_graph_key` an eager step had just before (one of the last
-    _MAX_GRAPHS eager steps) captures the step as CUDA graphs
-    (`_StepGraph`), and later steps under that key replay them, bitwise
-    the eager step; at most _MAX_GRAPHS keys keep their graphs. The CPU, a
-    group and a model axis run eagerly.
+    `_graph_key` an eager step had just before (one of the last two eager
+    steps) captures the step as CUDA graphs (`_StepGraph`), and later
+    steps under that key replay them, bitwise the eager step; two keys
+    keep their graphs, the least recently used going first (utils/
+    graphs.py's Policy). The CPU, a group and a model axis run eagerly.
 
     Traced as one `nerf.step` span (request id: the state's step; counts
     `replays` = 1 on a step that replayed its graphs, `captures` = 1 on
@@ -150,31 +155,19 @@ def make_train_step(model, cfg, group=None):
     timings = collections.deque(maxlen=1000)  # the last steps' all-reduce times
 
     tp = getattr(model, "tp", None)
-    graphs = collections.OrderedDict()  # _graph_key -> _StepGraph, the last used last
-    eager_keys = collections.deque(maxlen=_MAX_GRAPHS)  # the last eager steps' keys
+    graphed = group is None and tp is None and next(model.parameters()).device.type == "cuda"
+    policy = graphs_lib.Policy(keep=2) if graphed else None  # the captured steps
 
     def train_step(state, batch, generator=None, draws=None, sp_generator=None):
         draws = draws or {}
         with tracing.span("nerf.step", request=state.step) as s:
-            key = None
-            if group is None and tp is None:
-                key = _graph_key(model, state, batch, draws, generator, sp_generator)
-            graph = graphs.get(key) if key is not None else None
-            if graph is not None:
-                graphs.move_to_end(key)
-                s.count(replays=1)
-            elif key is not None and key in eager_keys:
-                s.count(captures=1)
-                graph = graphs[key] = _StepGraph(model, cfg, state, batch, draws, generator,
-                                                 sp_generator)
-                if len(graphs) > _MAX_GRAPHS:
-                    graphs.popitem(last=False)  # its graphs and memory pool go
             lr = schedule(state.step)
+            key = policy and _graph_key(model, state, batch, draws, generator, sp_generator)
+            graph = key and policy.attempt(key, lambda: _StepGraph(
+                model, cfg, state, batch, draws, generator, sp_generator), s)
             if graph is not None:
                 stats = graph.replay(state, batch, draws, lr)
             else:
-                if key is not None:
-                    eager_keys.append(key)
                 stats, grads = loss_and_grads(model, batch, cfg, generator, draws, sp_generator)
                 if tp is not None:
                     tp.timer.end_step()
@@ -192,27 +185,19 @@ def make_train_step(model, cfg, group=None):
         return float(np.median([t() if callable(t) else t for t in timings]))
 
     train_step.all_reduce_ms = all_reduce_ms
-    train_step.graphs = graphs  # the captured steps, by key
+    train_step.graphs = {} if policy is None else policy.graphs  # the captured steps, by key
     # The model axis's gathers and all-reduces per step (median ms), under
     # tensor parallelism.
     train_step.model_collectives_ms = tp.timer.median_ms if tp is not None else (lambda: None)
     return train_step
 
 
-_MAX_GRAPHS = 2  # captured steps kept per train step function (a pool each)
-
-
 def _graph_key(model, state, batch, draws, generator, sp_generator):
-    """What a captured step depends on besides the values it copies in, or
-    None where the step is not captured (parameters off a CUDA device):
-    the shapes, dtypes and devices of the batch and of the draws handed in,
-    the generators the other draws come from, the addresses of the
-    parameters and of the Adam moments, and the model's kernel switches
+    """What a captured step depends on besides the values it copies in: the
+    shapes, dtypes and devices of the batch and of the draws handed in, the
+    generators the other draws come from, the addresses of the parameters
+    and of the Adam moments, and the model's kernel switches
     (models/nerf.py)."""
-    params = list(model.parameters())
-    if not params or params[0].device.type != "cuda":
-        return None
-
     def sig(t):
         return tuple(t.shape), t.dtype, t.device
 
@@ -220,19 +205,18 @@ def _graph_key(model, state, batch, draws, generator, sp_generator):
     return (
         sig(batch["pixels"]), tuple(sig(r) for r in batch["rays"]),
         tuple((k, sig(v)) for k, v in sorted(draws.items())), generator, sp_generator,
-        tuple(p.data_ptr() for p in params),
+        tuple(p.data_ptr() for p in model.parameters()),
         tuple(t.data_ptr() for d in (state.params, opt["mu"], opt["nu"]) for t in d.values()),
         os.environ.get("PN_POSENC_IN_KERNEL"), os.environ.get("PN_SH_IN_KERNEL"),
     )
 
 
 class _StepGraph:
-    """A train step on one CUDA device, captured as CUDA graphs and replayed
-    between static buffers: the forward (`_forward`, up to the loss terms
-    and the stats), the backward (`torch.autograd.grad`, captured as
+    """A train step on one CUDA device, captured (utils/graphs.py) as three
+    phases: the forward (`_forward`, up to the loss terms and the stats),
+    the backward (`torch.autograd.grad`, captured as
     torch.cuda.make_graphed_callables captures it) and the Adam update
-    (`adam_apply`), one graph each so that each keeps its span, in one
-    memory pool. The batch and the draws are copied into device buffers
+    (`adam_apply`). The batch and the draws are copied into device buffers
     the graphs own; the host scalars of the update (bias corrections, lr)
     through a pinned buffer. The generators the draws not handed in come
     from are registered with the forward graph, so a replay draws what the
@@ -244,65 +228,33 @@ class _StepGraph:
     work, and the capture's own step is a replay."""
 
     def __init__(self, model, cfg, state, batch, draws, generator, sp_generator):
-        named = dict(model.named_parameters())
-        dev = self.dev = next(iter(named.values())).device
+        dev = next(model.parameters()).device
         self.batch = {"pixels": batch["pixels"].clone(),
                       "rays": Rays(*[r.clone() for r in batch["rays"]])}
         self.draws = {k: v.clone() for k, v in draws.items()}
-        self.host = torch.zeros(3, dtype=torch.float32, pin_memory=True)
-        self.scalars = torch.zeros(3, dtype=torch.float32, device=dev)
-        self.copied = torch.cuda.Event()  # the pinned scalars may be rewritten
-        self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
-        for g in {id(g): g for g in (generator, sp_generator) if g is not None}.values():
-            self.graphs[0].register_generator_state(g)
-        launches = fused_mlp.launch_counts()
-        with torch.cuda.device(dev):
-            with tracing.tape() as tape, torch.cuda.graph(self.graphs[0]):
-                stats, total = _forward(model, self.batch, cfg, generator, self.draws,
-                                        sp_generator)
-                self.stats = torch.stack(list(stats))
-            pool = self.graphs[0].pool()
-            with torch.cuda.graph(self.graphs[1], pool=pool):
-                self.grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
-            opt = state.opt_state
-            with torch.cuda.graph(self.graphs[2], pool=pool):
-                ckpt_utils.adam_apply(state.params, self.grads, opt["mu"], opt["nu"],
-                                      self.scalars)
-        # What a replay re-emits and counts: the trunk calls it launches.
-        self.trunk = [counts for name, counts in tape if name == "nerf.trunk"]
-        self.launches = [b - a for a, b in zip(launches, fused_mlp.launch_counts())]
-        fused_mlp.add_launch_counts([-d for d in self.launches])
+        self.scalars = graphs_lib.Pinned(3, dev)
+        opt = state.opt_state
+
+        def forward():
+            stats, total = _forward(model, self.batch, cfg, generator, self.draws, sp_generator)
+            return torch.stack(list(stats)), total
+
+        self.phases = graphs_lib.Phases(dev, [
+            ("nerf.forward", forward),
+            ("nerf.backward", lambda fwd: _grads(model, fwd[1])),
+            ("nerf.update", lambda fwd, grads: ckpt_utils.adam_apply(
+                state.params, grads, opt["mu"], opt["nu"], self.scalars.dev)),
+        ], generators={id(g): g for g in (generator, sp_generator) if g is not None}.values())
 
     def replay(self, state, batch, draws, lr):
         """Enqueue one step at the state's count and `lr` on `batch` and
         `draws`; returns its Stats, copies of the graph's."""
-        count = state.opt_state["count"] + 1
-        with torch.cuda.device(self.dev):
-            # Waits until the device has begun the last step: the host runs
-            # at most a step ahead, and the wait is in no phase's span.
-            self.copied.synchronize()
-            self.host.numpy()[...] = ckpt_utils.adam_scalars(count, lr)
-            with tracing.span("nerf.forward") as s:
-                self.scalars.copy_(self.host, non_blocking=True)
-                self.copied.record()
-                self.batch["pixels"].copy_(batch["pixels"])
-                for dst, src in zip(self.batch["rays"], batch["rays"]):
-                    dst.copy_(src)
-                for k, v in draws.items():
-                    self.draws[k].copy_(v)
-                if s:
-                    for counts in self.trunk:
-                        with tracing.span("nerf.trunk", **counts):
-                            pass
-                self.graphs[0].replay()
-            with tracing.span("nerf.backward"):
-                self.graphs[1].replay()
-            with tracing.span("nerf.update"):
-                self.graphs[2].replay()
-            stats = self.stats.clone()
-        state.opt_state["count"] = count
-        fused_mlp.add_launch_counts(self.launches)
-        return Stats(*stats.unbind())
+        state.opt_state["count"] += 1
+        self.scalars.put(ckpt_utils.adam_scalars(state.opt_state["count"], lr))
+        static = (self.batch["pixels"], *self.batch["rays"], *(self.draws[k] for k in draws))
+        for dst, src in zip(static, (batch["pixels"], *batch["rays"], *draws.values())):
+            dst.copy_(src)
+        return Stats(*self.phases.replay()[0][0].clone().unbind())
 
 
 def _reduce_over(group, cfg, stats, grads, timings):

@@ -26,8 +26,8 @@ Outputs are (sigma [N, n_sigma], rgb [N, C]) in f32.
 CUDA tensors launch the kernels or raise; CPU tensors run the plain
 versions. `fwd_launches` / `bwd_launches` count kernel launches;
 `posenc_launches` / `sh_launches` count the launches (either kernel) that
-ran each variant. A replayed CUDA graph launches what it captured, and
-its owner counts that (`launch_counts`, `add_launch_counts`).
+ran each variant (kernels/__init__.py moves them for a replayed CUDA
+graph).
 """
 
 import collections
@@ -43,7 +43,6 @@ fwd_launches = 0  # forward kernel launches in this process
 bwd_launches = 0  # backward kernel launches in this process
 posenc_launches = 0  # launches with the in-kernel positional encoding
 sh_launches = 0  # launches with the in-kernel SH decode
-_COUNTERS = ("fwd_launches", "bwd_launches", "posenc_launches", "sh_launches")
 
 _SOURCES = ("fused_mlp.cu",)
 
@@ -293,19 +292,6 @@ def _x_for_kernel(x, meta):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def launch_counts():
-    """The launch counters, in _COUNTERS order."""
-    return [globals()[n] for n in _COUNTERS]
-
-
-def add_launch_counts(delta):
-    """Advance the launch counters by `delta` (launch_counts' order): by a
-    replayed CUDA graph's captured launches, or back by a capture's, which
-    launches nothing."""
-    for n, d in zip(_COUNTERS, delta):
-        globals()[n] += d
 
 
 def _count_variants(meta):

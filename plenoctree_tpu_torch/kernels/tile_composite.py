@@ -173,27 +173,10 @@ def composite_tiles(
             return composite_tiles_reference(*args, soa, **kw)
         if soa.device.type != "cuda":
             raise ValueError(f"composite_tiles: unsupported device {soa.device}")
-        out = launch_fwd(*args, soa, **kw)
+        _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
+        out = _launch_fwd(build(), args, soa, **kw)
     launches += 1
     return out
-
-
-def launch_fwd(*args, **kw):
-    """`composite_tiles`'s checks and launch on CUDA tensors, untraced and
-    uncounted: what a captured frame records (`replay_fwd` replays it)."""
-    soa = args[-1]
-    _check_args(args[:-1], soa, kw["basis_dim"], kw["n_channels"], kw["sigma_row"],
-                kw["runrows"], kw["quantum"])
-    return _launch_fwd(build(), args[:-1], soa, **kw)
-
-
-def replay_fwd(graph):
-    """Replay a CUDA graph that holds one `launch_fwd`, traced and counted
-    as a `composite_tiles` call is."""
-    global launches
-    with tracing.span("tile.composite"):
-        graph.replay()
-    launches += 1
 
 
 def _launch_fwd(lib, args, soa, *, fmt, basis_dim, n_channels, sigma_row, runrows, quantum,

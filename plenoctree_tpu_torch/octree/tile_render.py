@@ -36,7 +36,7 @@ and the sticky caps (w1cap, ccap), and the frame copies nothing from the
 host and never waits on it: its constants are made once per renderer and
 device. So `render_persp` captures the frame's device work as CUDA graphs
 once a (height, width, fx, caps) comes back, and replays them under it
-(`_FrameGraph`): one graph launch where the
+(`_FrameGraph`, through utils/graphs.py): three graph launches where the
 eager chain makes some 860 launch calls, the same kernels in the same
 order, bitwise the same frame. The CPU, a mesh and the tile optimizer run
 the eager chain.
@@ -48,11 +48,9 @@ import warnings
 import numpy as np
 import torch
 
-from plenoctree_tpu_torch.kernels.tile_composite import (
-    _fma, composite_tiles, launch_fwd, replay_fwd,
-)
+from plenoctree_tpu_torch.kernels.tile_composite import _fma, composite_tiles
 from plenoctree_tpu_torch.octree.renderer import RenderOptions, _norm3, _ray_basis, resolve_device
-from plenoctree_tpu_torch.utils import tracing
+from plenoctree_tpu_torch.utils import graphs, tracing
 
 TILE = 16  # pixels per tile side (256 rays)
 RUNROWS = 128  # default instance rows per compute chunk
@@ -676,56 +674,43 @@ def _merge_runs(runs_start, runs_len, runs_mask, rev, quantum):
 
 
 class _FrameGraph:
-    """A frame's device work on one CUDA slot, captured as CUDA graphs and
-    replayed between static buffers: the tile inputs, kernel #3 and the
-    assembly, one graph each so that each keeps its span, in one memory
-    pool. The pose enters through a device buffer, copied in from a pinned
-    one. Every shape is fixed by `key` (height, width, fx, w1cap, ccap),
-    and the same kernels run in the same order as the eager chain's, so a
-    replayed frame is bitwise the eager frame. It holds no reference to the
-    renderer: dropping it frees the graphs and their pool."""
+    """A frame's device work on one CUDA slot, captured (utils/graphs.py) as
+    three phases: the tile inputs, kernel #3 and the assembly. The pose
+    enters through a pinned buffer. Every shape is fixed by `key` (height,
+    width, fx, w1cap, ccap), and the same kernels run in the same order as
+    the eager chain's, so a replayed frame is bitwise the eager frame. It
+    holds no reference to the renderer: dropping it frees the graphs and
+    their pool."""
 
     def __init__(self, r, key):
         height, width, fx, w1cap, ccap = key
-        self.key = key
         dev, rep, _ = r._slots[0]
-        self.pose_host = torch.zeros((3, 4), dtype=_F32, pin_memory=True)
-        self.pose_dev = torch.zeros((3, 4), dtype=_F32, device=dev)
-        self.pose_copied = torch.cuda.Event()  # the pinned pose may be rewritten
-        inputs = r._inputs_fn(height, width, fx, w1cap, ccap, device=self.pose_dev.device)
-        self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
-        with torch.cuda.graph(self.graphs[0]):
+        self.pose = graphs.Pinned((3, 4), dev)
+        inputs = r._inputs_fn(height, width, fx, w1cap, ccap, device=self.pose.dev.device)
+
+        def tile_inputs():
             p2_args, *counts, nck = inputs(
-                self.pose_dev, rep["csr"], rep["base"], rep["extra_data"], rep["blk_bbox"]
+                self.pose.dev, rep["csr"], rep["base"], rep["extra_data"], rep["blk_bbox"]
             )
             # What a traced replay sums: the chunks handed to the kernel and
             # their live rows, per tile.
-            self.tile_counts = torch.stack([nck, _live_rows(*p2_args[1:4], r.quantum)])
-        pool = self.graphs[0].pool()
-        with torch.cuda.graph(self.graphs[1], pool=pool):
-            out = launch_fwd(*p2_args, rep["soa"], **r._kernel_kw)
-        with torch.cuda.graph(self.graphs[2], pool=pool):
-            res = r._assemble([(out, tuple(counts), None)], height, width)
-        # As `render_persp_async` gives a frame: the u8 payload, or
-        # (img, n_max, nc_max, w1_max).
-        self.out = res if r.output == "u8" else (res[0], *res[1])
+            return p2_args, counts, torch.stack([nck, _live_rows(*p2_args[1:4], r.quantum)])
+
+        def count(s, out):
+            pieces, rows = out[2].sum(1)
+            s.count(pieces=pieces, rows=rows)
+
+        self.phases = graphs.Phases(dev, [
+            ("tile.inputs", tile_inputs, count),
+            ("tile.composite", lambda inp: composite_tiles(*inp[0], rep["soa"], **r._kernel_kw)),
+            ("tile.assemble",
+             lambda inp, out: r._assemble([(out, tuple(inp[1]), None)], height, width)),
+        ])
 
     def replay(self, c2w):
         """Enqueue the frame at pose c2w; returns the static outputs."""
-        stream = torch.cuda.current_stream(self.pose_dev.device)
-        with tracing.span("tile.inputs") as s:
-            self.pose_copied.synchronize()  # the last pose has left the buffer
-            self.pose_host.numpy()[...] = np.asarray(c2w, np.float32)[:3, :4]
-            self.pose_dev.copy_(self.pose_host, non_blocking=True)
-            self.pose_copied.record(stream)
-            self.graphs[0].replay()
-            if s:  # the chunks handed to the kernel and their live rows
-                pieces, rows = self.tile_counts.sum(1)
-                s.count(pieces=pieces, rows=rows)
-        replay_fwd(self.graphs[1])
-        with tracing.span("tile.assemble"):
-            self.graphs[2].replay()
-        return self.out
+        self.pose.put(np.asarray(c2w, np.float32)[:3, :4])
+        return self.phases.replay()[-1]
 
 
 class TileRenderer:
@@ -756,9 +741,10 @@ class TileRenderer:
     bitwise the one-device frame.
 
     With one CUDA device and no mesh, frames replay captured graphs
-    (`_enqueue`): the second attempt in a row under one (height, width, fx,
-    w1cap, ccap) captures them, later attempts under that key replay them,
-    and an attempt under another key releases them.
+    (`_enqueue`, utils/graphs.py's Policy keeping one): the second attempt
+    in a row under one (height, width, fx, w1cap, ccap) captures them,
+    later attempts under that key replay them, and an attempt under
+    another key releases them.
     """
 
     def __init__(
@@ -860,9 +846,9 @@ class TileRenderer:
         self.output = output
         self.frames = 0  # render_persp calls: the request id of their spans
         self._consts = {}  # device -> the frame's constant tensors there
-        self._graph = None  # the frame graph of the current key (one CUDA slot)
-        self._key = None  # the key of the last attempt
-        self._side = torch.cuda.Stream(self.device) if self._graphed() else None
+        # Frames are captured and replayed on one CUDA slot; the CPU and a
+        # mesh (several slots and streams) run eagerly.
+        self._policy = graphs.Policy(keep=1) if mesh is None and dev.type == "cuda" else None
         self.tile = tile
         self.rays = tile * tile
         od_cap = (
@@ -1133,25 +1119,21 @@ class TileRenderer:
             return out
         return out.clone() if self.output == "u8" else tuple(t.clone() for t in out)
 
-    def _graphed(self):
-        """Whether frames are captured and replayed: on one CUDA slot. The
-        CPU and a mesh (several slots and streams) run eagerly."""
-        return self.mesh is None and self.device.type == "cuda"
-
     def _enqueue(self, c2w, height, width, fx):
         """One attempt at a frame on the device, traced as `tile.render`.
 
         Eager on the CPU and over a mesh. On one CUDA slot, keyed on
-        (height, width, fx, w1cap, ccap): a replay of the frame graph
+        (height, width, fx, w1cap, ccap) by the renderer's Policy
+        (utils/graphs.py, keeping one graph): a replay of the frame graph
         captured under the key, counted as `replays`. Without one, a graph
         under another key is released; then an attempt under the key of the
-        attempt before it runs eagerly on a side stream (the capture's
-        warm-up) and captures (counted as `captures`), and any other attempt
-        runs eagerly. So only traffic whose key comes back pays for a
-        capture: not a renderer that serves one frame, a viewer whose size
-        or focal changes every frame, or the re-render after a cap regrowth.
-        Returns (the results as `render_persp_async` gives them, whether
-        they are the graph's static outputs)."""
+        eager attempt before it captures and replays (counted as
+        `captures`), and any other attempt runs eagerly. So only traffic
+        whose key comes back pays for a capture: not a renderer that serves
+        one frame, a viewer whose size or focal changes every frame, or the
+        re-render after a cap regrowth. Returns (the results as
+        `render_persp_async` gives them, whether they are the graph's
+        static outputs)."""
         if self.w1cap is None:
             self.w1cap = int(
                 min(
@@ -1160,46 +1142,23 @@ class TileRenderer:
                 )
             )
         with tracing.span("tile.render") as s:
-            if not self._graphed():
-                return self._eager(c2w, height, width, fx), False
             key = (height, width, float(fx), self.w1cap, self.ccap)
-            if self._graph is not None and self._graph.key != key:
-                self._graph = None  # its graphs and memory pool go
-            seen, self._key = key == self._key, key
-            with torch.cuda.device(self.device):
-                if self._graph is not None:
-                    if s:
-                        s.count(replays=1)
-                    return self._graph.replay(c2w), True
-                if not seen:
-                    return self._eager(c2w, height, width, fx), False
-                if s:
-                    s.count(captures=1)
-                main = torch.cuda.current_stream()
-                self._side.wait_stream(main)
-                with torch.cuda.stream(self._side):
-                    out = self._eager(c2w, height, width, fx)
-                main.wait_stream(self._side)
-                for t in out if isinstance(out, tuple) else (out,):
-                    t.record_stream(main)
-                self._graph = _FrameGraph(self, key)
-                return out, False
+            graph = self._policy and self._policy.attempt(key, lambda: _FrameGraph(self, key), s)
+            if graph is None:
+                return self._eager(c2w, height, width, fx), False
+            return graph.replay(c2w), True
 
     def _eager(self, c2w, height, width, fx):
         """The eager chain of one attempt: each slot's tile inputs and
         compositing, then the assembly."""
         parts = self._render_ranges(c2w, height, width, fx)
         with tracing.span("tile.assemble"):
-            out = self._assemble(parts, height, width)
-        if self.output == "u8":
-            return out
-        img, (n_max, nc_max, w1_max) = out
-        return img, n_max, nc_max, w1_max
+            return self._assemble(parts, height, width)
 
     def _assemble(self, parts, height, width):
         """`_render_ranges`'s parts -> the u8 payload (image, then n_max,
-        nc_max, w1_max as int32s), or (image [height, width, nc] f32, those
-        three [3] int32) for output="f32"."""
+        nc_max, w1_max as int32s), or (image [height, width, nc] f32, n_max,
+        nc_max, w1_max as 0-d int32) for output="f32"."""
         TILE = self.tile
         hp = -(-height // TILE) * TILE
         wp = -(-width // TILE) * TILE
@@ -1213,7 +1172,7 @@ class TileRenderer:
             img8 = torch.round(img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
             tail = maxima.view(torch.uint8)
             return torch.cat([img8.reshape(-1), tail])
-        return img, maxima
+        return (img, *maxima)
 
     def tile_ranges(self, height, width):
         """[(device, replicas, stream, (t0, t1))]: each slot's contiguous

@@ -1027,7 +1027,7 @@ def _check_async(r, poses, h, w, fx):
     two distinct frames, each bitwise the eager chain's at its pose."""
     launches = K.launches
     outs = [r.render_persp_async(c2w, h, w, fx) for c2w in poses[:2]]
-    assert r._graph is not None and K.launches == launches + 2
+    assert len(r._policy.graphs) == 1 and K.launches == launches + 2
     caps = (r.w1cap, r.ccap)
     got = []
     for out in outs:
@@ -1077,7 +1077,7 @@ def test_a_focal_that_never_comes_back_never_captures():
     res = 200
     attempts = _serve_and_check(r, SERVE_ORBIT[:4], res, res,
                                 [(1.1 + 0.05 * k) * res for k in range(4)])
-    assert all(a == {} for got in attempts for a in got) and r._graph is None
+    assert all(a == {} for got in attempts for a in got) and not r._policy.graphs
 
 
 @pytest.mark.gpu

@@ -165,7 +165,7 @@ def test_a_cpu_renderer_never_captures_and_renders_the_eager_chain(tree):
         frames = [r.render_persp(c2w, RES, RES, FOCAL) for c2w in c2ws]
     renders = [x for x in tracing.window()["records"] if x["name"] == "tile.render"]
     assert len(renders) == 3 and all(x["counts"] == {} for x in renders)
-    assert r._graph is None and r._side is None and not r._graphed()
+    assert r._policy is None  # no policy, so no graph
     for c2w, img in zip(c2ws, frames):
         np.testing.assert_array_equal(img, _eager_chain(r, c2w))
     assert not np.array_equal(frames[0], frames[1])
@@ -288,7 +288,7 @@ def test_a_replayed_train_step_keeps_its_spans_and_rows():
     their rows, and the trunk's launch counters advance by them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    from plenoctree_tpu_torch.kernels import fused_mlp
+    from plenoctree_tpu_torch import kernels
 
     cfg = default_config(dataset="blender", batch_size=B, net_depth=2, net_width=32, sh_deg=1,
                          num_coarse_samples=SC, num_fine_samples=SF, sparsity_npoints=NPTS,
@@ -307,11 +307,12 @@ def test_a_replayed_train_step_keeps_its_spans_and_rows():
              "sp_points": torch.rand((NPTS, 3), generator=g, device="cuda") - 0.5}
     for _ in range(2):  # eager, then captured
         step(state, batch, draws=draws)
-    launches = fused_mlp.launch_counts()
+    launches = kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CPU]):
         step(state, batch, draws=draws)
     torch.cuda.synchronize()
-    assert [b - a for a, b in zip(launches, fused_mlp.launch_counts())][:2] == [3, 3]
+    assert [kernels.launch_counts()[("fused_mlp", k)] - launches[("fused_mlp", k)]
+            for k in ("fwd_launches", "bwd_launches")] == [3, 3]
     w = tracing.window()
     recs = {x["id"]: x for x in w["records"]}
     names = {x["name"]: x for x in w["records"]}
