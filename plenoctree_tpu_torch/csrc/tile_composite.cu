@@ -37,19 +37,29 @@
 //   one OR of each warp's group bits before READY; in the backward, whose
 //   warps never need each other's state, mbarriers (FULL, EMPTY), so a
 //   consumer warp can run a chunk ahead of the slowest one.
-// Occupancy: the forward keeps two blocks of 288 threads per SM for SH16
-//   (two 28 KB buffers, two live lists and the basis are 81 KB a block, 89
-//   registers) and one for SG25 (118 KB); the backward one (two chunk
-//   gradients and the per-warp cotangent tiles besides: 166 KB for SH16,
-//   231 KB of the 227 KiB a block may take for SG25).
+// - The forward's colour heads of the published configurations (n_channels
+//   3 with basis_dim 1, 4, 9, 16 or 25: RGBA, SH degrees 0-4, SG25; at the
+//   index's quantum of 128) each have their own instantiation, which holds
+//   each ray's basis in registers: a colour term is one broadcast shared
+//   load of the row's coefficient (at an offset fixed at compile time) and
+//   one FMA. Any other shape runs the generic instantiation, which keeps the
+//   basis in shared memory and reads basis_dim at run time.
+// Occupancy: the forward keeps two blocks of 288 threads per SM: two
+//   staging buffers and two live lists are 64.6 KB a block for SH16 and
+//   92.3 KB for SG25 (the generic instantiation adds the basis, bd x 1 KB);
+//   the backward one (its basis, two chunk gradients and the per-warp
+//   cotangent tiles besides: 166 KB for SH16, 231 KB of the 227 KiB a block
+//   may take for SG25).
 //
 // Numerics: f32 throughout (the TPU's use_bf16 operand rounding is not
 // reproduced). Built with --fmad=false, so nothing is contracted behind the
 // source's back: the forward's slab test is an explicit fmaf (box*invd -
 // o*invd with one rounding, as XLA computes it), everything else rounds as
-// written, like the plain PyTorch version. The forward's sums (optical depth
-// in front, colour, opacity) are taken sequentially in front-to-back order
-// rather than by a matmul: results agree with the plain version to f32
+// written, like the plain PyTorch version, but for the register-basis
+// instantiations' colour sums, one fmaf a term (one rounding where the
+// generic sum rounds twice). The forward's sums (optical depth in front,
+// colour, opacity) are taken sequentially in front-to-back order rather
+// than by a matmul: results agree with the plain version to f32
 // summation-order rounding.
 
 #include <cuda_runtime.h>
@@ -61,6 +71,10 @@ constexpr int kMaxChannels = 7;  // rgb(nc) + transmittance fit in 8 outputs
 constexpr int kThreads = 256;    // threads per block (rays of a tile or of a quad group)
 constexpr int kMaxRows = 256;    // runrows: up to 8 sort keys per lane
 constexpr int kSlots = 8;        // backward: live rows per tensor-core slice (mma N)
+// The forward's register-basis instantiations: their channels and quantum.
+constexpr int kRegChannels = 3;
+constexpr int kRegQShift = 7;
+constexpr int kRegQuantum = 1 << kRegQShift;
 
 // Both kernels' view of a launch: per-tile inputs in the JAX p2_args layout.
 struct Tiles {
@@ -487,21 +501,30 @@ __device__ __forceinline__ void init_stage(const Stage& s) {
 
 // ---- The forward ----
 
-// One instantiation for every tile size: the consumer warps (a tile's or a
-// quad group's rays, up to 256) and the producer warp; two blocks per SM
-// (see the occupancy note at the top).
+// One instantiation per colour head for every tile size: the consumer warps
+// (a tile's or a quad group's rays, up to 256) and the producer warp; two
+// blocks per SM (see the occupancy note at the top). BD > 0: basis_dim BD,
+// NC channels and quantum kRegQuantum, each consumer's basis in registers;
+// BD 0: the generic kernel, the shape read at run time and the basis in
+// shared memory.
+template <int BD, int NC>
 __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const __grid_constant__ Params p) {
+  constexpr bool kReg = BD > 0;
+  constexpr int kAcc = kReg ? NC : kMaxChannels;
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles& t = p.t;
   const int tid = threadIdx.x;
   const int nb = blockDim.x;       // consumers and the producer warp
   const int ncons = nb - 32;       // consumer threads
-  const int bd = t.basis_dim;
-  const int nc = t.n_channels;
-  const int G = t.runrows / t.quantum;
+  const int bd = kReg ? BD : t.basis_dim;
+  const int nc = kReg ? NC : t.n_channels;
+  const int q = kReg ? kRegQuantum : t.quantum;
+  const int qshift = kReg ? kRegQShift : t.qshift;
+  const int srows = kReg ? 7 + NC * BD : t.srows;
+  const int G = t.runrows / q;
   size_t off;
   const Stage s = carve_stage(smem, t, off);
-  float* s_basis = reinterpret_cast<float*>(smem + off);  // [bd, ncons]
+  float* s_basis = reinterpret_cast<float*>(smem + off);  // generic: [bd, ncons]
 
   const Ray ry = ray_of(t);
   const int n_pieces = t.meta[ry.tile * 4];
@@ -510,7 +533,7 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
   const float m1 = t.mdir[ry.tile * 4 + 1];
   const float m2 = t.mdir[ry.tile * 4 + 2];
   init_stage(s);
-  if (tid < ncons) {
+  if (!kReg && tid < ncons) {
     for (int k = 0; k < bd; ++k) s_basis[k * ncons + tid] = ry.active ? t.basis[ry.ray * bd + k] : 0.f;
   }
   __syncthreads();
@@ -519,6 +542,9 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
     return;
   }
 
+  float basis[kReg ? BD : 1];  // the ray's basis (register-basis instantiations)
+#pragma unroll
+  for (int k = 0; k < (kReg ? BD : 0); ++k) basis[k] = ry.active ? t.basis[ry.ray * BD + k] : 0.f;
   float ivx = 0.f, ivy = 0.f, ivz = 0.f, oix = 0.f, oiy = 0.f, oiz = 0.f;
   float dscale = 0.f, tmin = 0.f, tmax = 0.f;
   if (ry.active) {
@@ -534,9 +560,9 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
   }
 
   float cum = 0.f;
-  float acc[kMaxChannels];
+  float acc[kAcc];
 #pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
+  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const int b = chunk & 1;
@@ -559,7 +585,6 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
       mbar_wait(&s.bar[b], (chunk >> 1) & 1);  // the copy's data, seen by this thread
       const float* buf = s.buf + b * s.buf_stride;
       const float4* live = s.live + b * 2 * t.runrows;
-      const int q = t.quantum;
       float prefix = 0.f;  // optical depth of this chunk's hits in front
       float cum_add = 0.f;
       for (int i = 0; i < n_live; ++i) {
@@ -583,15 +608,33 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
         if (light > p.stop_thresh) {
           const float contrib = light * (1.f - expf(-sdt));
           const int r = __float_as_int(hi.w);
-          const float* coef0 = buf + (size_t)(r >> t.qshift) * t.srows * q + (r & (q - 1)) + 6 * q;
+          const float* coef0 = buf + (size_t)(r >> qshift) * srows * q + (r & (q - 1)) + 6 * q;
+          if constexpr (kReg) {
+            // Term k of every channel in turn (three independent chains),
+            // each channel's terms in the order k = 0..BD-1.
+            float raw[NC];
 #pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c) {
-            if (c < nc) {
-              const float* coef = coef0 + c * bd * q;
-              float raw = 0.f;
-              for (int k = 0; k < bd; ++k) raw += s_basis[k * ncons + tid] * coef[k * q];
-              const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw) + 0.5f : raw;
+            for (int c = 0; c < NC; ++c) raw[c] = 0.f;
+#pragma unroll
+            for (int k = 0; k < BD; ++k) {
+#pragma unroll
+              for (int c = 0; c < NC; ++c) raw[c] = fmaf(basis[k], coef0[(c * BD + k) * kRegQuantum], raw[c]);
+            }
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw[c]) + 0.5f : raw[c];
               acc[c] += contrib * rgb;
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < kMaxChannels; ++c) {
+              if (c < nc) {
+                const float* coef = coef0 + c * bd * q;
+                float raw = 0.f;
+                for (int k = 0; k < bd; ++k) raw += s_basis[k * ncons + tid] * coef[k * q];
+                const float rgb = p.sigmoid ? 0.5f * tanhf(0.5f * raw) + 0.5f : raw;
+                acc[c] += contrib * rgb;
+              }
             }
           }
           cum_add += sdt;
@@ -608,7 +651,7 @@ __global__ void __launch_bounds__(kThreads + 32, 2) tile_composite_kernel(const 
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       float v = 0.f;
-      if (c < nc) v = acc[c < kMaxChannels ? c : 0];
+      if (c < nc) v = acc[c < kAcc ? c : 0];
       if (c == nc) v = expf(-cum);
       out[c] = v;
     }
@@ -926,16 +969,74 @@ bool tiles_ok(int rays, int runrows, int quantum, int fields) {
          (quantum & (quantum - 1)) == 0 && runrows % quantum == 0 && fields >= 6;
 }
 
+using FwdKernel = decltype(&tile_composite_kernel<0, 0>);
+
+// The forward's instantiation for a colour head: its own for the published
+// shapes (register basis), else the generic one.
+FwdKernel fwd_kernel(int basis_dim, int n_channels, int quantum) {
+  if (n_channels == kRegChannels && quantum == kRegQuantum) {
+    switch (basis_dim) {
+      case 1: return tile_composite_kernel<1, kRegChannels>;
+      case 4: return tile_composite_kernel<4, kRegChannels>;
+      case 9: return tile_composite_kernel<9, kRegChannels>;
+      case 16: return tile_composite_kernel<16, kRegChannels>;
+      case 25: return tile_composite_kernel<25, kRegChannels>;
+    }
+  }
+  return tile_composite_kernel<0, 0>;
+}
+
+bool reg_basis(int basis_dim, int n_channels, int quantum) {
+  return fwd_kernel(basis_dim, n_channels, quantum) != tile_composite_kernel<0, 0>;
+}
+
+size_t fwd_smem_bytes(int rays, int basis_dim, int n_channels, int rows, int runrows, int quantum) {
+  int sub, threads;
+  geometry(rays, &sub, &threads);
+  const size_t basis = reg_basis(basis_dim, n_channels, quantum) ? 0 : (size_t)basis_dim * (threads - 32);
+  return stage_bytes(rows, runrows, quantum) + sizeof(float) * basis;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of a block; `rows` is the rows staged per piece,
-// sigma_row + 1.
+// Shared memory of a forward block; `rows` is the rows staged per piece,
+// sigma_row + 1 = 7 + n_channels * basis_dim.
 size_t pn_tile_composite_smem_bytes(int rays, int basis_dim, int rows, int runrows, int quantum) {
+  const int n_channels = basis_dim > 0 ? (rows - 7) / basis_dim : 0;
+  return fwd_smem_bytes(rays, basis_dim, n_channels, rows, runrows, quantum);
+}
+
+// 1 where the forward for this colour head holds each ray's basis in
+// registers, 0 where it runs the generic instantiation.
+int pn_tile_composite_reg_basis(int basis_dim, int n_channels, int quantum) {
+  return reg_basis(basis_dim, n_channels, quantum);
+}
+
+// The forward's instantiation for these shapes as a launch would take it:
+// out5 = {blocks per SM at its shared memory, registers a thread, local
+// memory a thread (spills), shared memory a block, 1 if it holds the basis
+// in registers}.
+int pn_tile_composite_occupancy(int rays, int basis_dim, int n_channels, int runrows, int quantum,
+                                int* out5) {
   int sub, threads;
   geometry(rays, &sub, &threads);
-  return stage_bytes(rows, runrows, quantum) + sizeof(float) * (size_t)basis_dim * (threads - 32);
+  const FwdKernel kernel = fwd_kernel(basis_dim, n_channels, quantum);
+  const size_t smem = fwd_smem_bytes(rays, basis_dim, n_channels, 7 + n_channels * basis_dim,
+                                     runrows, quantum);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out5[0] = blocks;
+  out5[1] = attr.numRegs;
+  out5[2] = (int)attr.localSizeBytes;
+  out5[3] = (int)smem;
+  out5[4] = reg_basis(basis_dim, n_channels, quantum);
+  return 0;
 }
 
 int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo, const int* piece_hi,
@@ -955,9 +1056,8 @@ int pn_tile_composite(const int* meta, const int* piece_c0, const int* piece_lo,
                  rays, ccap, basis_dim, n_channels, sigma_row, fields, runrows, quantum, sub,
                  __builtin_ctz(quantum), sigma_row + 1};
   const Params p{tl, out, step_eps, stop_thresh, od_cap, sigmoid};
-  const size_t smem =
-      pn_tile_composite_smem_bytes(rays, basis_dim, sigma_row + 1, runrows, quantum);
-  return launch(tile_composite_kernel, p, n_tiles, sub, threads, smem, stream);
+  const size_t smem = fwd_smem_bytes(rays, basis_dim, n_channels, sigma_row + 1, runrows, quantum);
+  return launch(fwd_kernel(basis_dim, n_channels, quantum), p, n_tiles, sub, threads, smem, stream);
 }
 
 size_t pn_tile_composite_bwd_smem_bytes(int rays, int basis_dim, int n_channels, int rows,

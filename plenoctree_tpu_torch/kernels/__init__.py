@@ -12,7 +12,7 @@ import importlib
 
 _COUNTERS = {
     "fused_mlp": ("fwd_launches", "bwd_launches", "posenc_launches", "sh_launches"),
-    "tile_composite": ("launches", "bwd_launches"),
+    "tile_composite": ("launches", "bwd_launches", "reg_basis_launches"),
 }
 
 

@@ -27,6 +27,9 @@ from plenoctree_tpu_torch.utils import tracing
 
 launches = 0  # kernel launches by composite_tiles in this process
 bwd_launches = 0  # kernel launches by composite_tiles_bwd in this process
+# Of `launches`, those of an instantiation that holds each ray's basis in
+# registers (csrc/tile_composite.cu picks it by the colour head's shape).
+reg_basis_launches = 0
 
 _SOURCES = ("tile_composite.cu",)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
@@ -77,6 +80,11 @@ def _bind(lib):
         if hasattr(lib, "pn_tile_bwd_counts"):
             lib.pn_tile_bwd_counts.restype = i32
             lib.pn_tile_bwd_counts.argtypes = [ptr, i32]
+        if hasattr(lib, "pn_tile_composite_reg_basis"):
+            lib.pn_tile_composite_reg_basis.restype = i32
+            lib.pn_tile_composite_reg_basis.argtypes = [i32] * 3
+            lib.pn_tile_composite_occupancy.restype = i32
+            lib.pn_tile_composite_occupancy.argtypes = [i32] * 5 + [ptr]
         lib.pn_cuda_error_string.restype = ctypes.c_char_p
         lib.pn_cuda_error_string.argtypes = [i32]
         lib._pn_bound = True
@@ -91,6 +99,20 @@ def bwd_atomic_counts(reset=False):
     rc = lib.pn_tile_bwd_counts(ctypes.cast(out, ctypes.c_void_p), int(reset))
     _raise_on(lib, rc, "pn_tile_bwd_counts")
     return int(out[0]), int(out[1])
+
+
+def forward_occupancy(rays, basis_dim, n_channels, runrows, quantum):
+    """The forward instantiation that composite_tiles would launch for these
+    shapes, as the card holds it: {"blocks_per_sm" (at its shared memory),
+    "registers" (a thread), "local_bytes" (a thread: spills), "smem_bytes" (a
+    block), "reg_basis" (1: the ray's basis in registers)}."""
+    lib = build()
+    out = (ctypes.c_int * 5)()
+    rc = lib.pn_tile_composite_occupancy(rays, basis_dim, n_channels, runrows, quantum,
+                                         ctypes.cast(out, ctypes.c_void_p))
+    _raise_on(lib, rc, "pn_tile_composite_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes", "reg_basis"),
+                    map(int, out)))
 
 
 def _raise_on(lib, rc, what):
@@ -159,23 +181,29 @@ def composite_tiles(
 
     CUDA tensors launch the kernel (csrc/tile_composite.cu); CPU tensors run
     `composite_tiles_reference`. The kernel trusts phase 1's piece
-    descriptors to address rows inside `soa`. Traced as `tile.composite`.
+    descriptors to address rows inside `soa`. Traced as `tile.composite`; on
+    CUDA with the count `reg_basis`, 1 where the instantiation launched
+    holds each ray's basis in registers, else 0.
     """
-    global launches
+    global launches, reg_basis_launches
     args = (meta, piece_c0, piece_lo, piece_hi, piece_mask, o, invd, aux, mdir, basis)
     kw = dict(
         fmt=fmt, basis_dim=basis_dim, n_channels=n_channels, sigma_row=sigma_row,
         runrows=runrows, quantum=quantum, step_eps=step_eps,
         stop_thresh=stop_thresh, od_cap=od_cap,
     )
-    with tracing.span("tile.composite"):
-        if soa.device.type == "cpu":
+    if soa.device.type == "cpu":
+        with tracing.span("tile.composite"):
             return composite_tiles_reference(*args, soa, **kw)
-        if soa.device.type != "cuda":
-            raise ValueError(f"composite_tiles: unsupported device {soa.device}")
+    if soa.device.type != "cuda":
+        raise ValueError(f"composite_tiles: unsupported device {soa.device}")
+    lib = build()
+    reg = lib.pn_tile_composite_reg_basis(basis_dim, n_channels, quantum)
+    with tracing.span("tile.composite", reg_basis=reg):
         _check_args(args, soa, basis_dim, n_channels, sigma_row, runrows, quantum)
-        out = _launch_fwd(build(), args, soa, **kw)
+        out = _launch_fwd(lib, args, soa, **kw)
     launches += 1
+    reg_basis_launches += reg
     return out
 
 

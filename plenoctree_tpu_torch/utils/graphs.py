@@ -12,9 +12,10 @@ and replay it after, bitwise the eager work. What that takes is here:
   * `Phases`: the captured work, one graph per phase in one memory pool,
     each replayed in a span of its phase's name. A replay counts what the
     capture recorded: the spans with counts that the capture opened (the
-    trunk's `nerf.trunk` rows), re-emitted in the phase's span, and the
-    kernel launches, which the capture takes back from kernels/'s counters
-    (a capture launches nothing) and every replay adds again.
+    trunk's `nerf.trunk` rows), re-emitted in the phase's span, or added to
+    it where the span is the phase's own (`tile.composite`'s `reg_basis`),
+    and the kernel launches, which the capture takes back from kernels/'s
+    counters (a capture launches nothing) and every replay adds again.
 
 The caller decides whether graphs are used at all: the CPU, a mesh, a
 process group and a model axis hold no Policy and run eagerly.
@@ -119,6 +120,9 @@ class Phases:
                     graph.replay()
                     if s:
                         for child, counts in spans:
+                            if child == name:
+                                s.count(**counts)
+                                continue
                             with tracing.span(child, **counts):
                                 pass
                         for h in hook:

@@ -51,22 +51,68 @@ def _need_cuda():
         pytest.skip("needs a CUDA GPU")
 
 
+def _composite_traced(p2, soa, kw):
+    """composite_tiles under a host profiler: (its output, the counts of its
+    `tile.composite` span)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = K.composite_tiles(*p2, soa, **kw)
+    (rec,) = [x for x in tracing.window()["records"] if x["name"] == "tile.composite"]
+    return out, rec["counts"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("basis_dim,res", [(1, 64), (16, 64), (16, 200)])
-def test_kernel_matches_reference(basis_dim, res):
+@pytest.mark.parametrize("fmt,basis_dim,tile,res", [
+    ("SH", 1, 16, 64), ("SH", 4, 16, 64), ("SH", 9, 16, 64), ("SH", 16, 16, 64),
+    ("SH", 16, 16, 200), ("SH", 25, 16, 64), ("SG", 25, 16, 64), ("SH", 16, 32, 64),
+    ("SH", 48, 16, 64),
+])
+def test_kernel_matches_reference(fmt, basis_dim, tile, res):
+    """The served forward on a scene tree against its plain version. Each
+    published colour head (3 channels of basis_dim 1, 4, 9, 16, 25: SH
+    degrees 0-4, and SG25) runs its register-basis instantiation; tile 32
+    runs four blocks a tile. basis_dim 48 reads the SH16 tree's colour rows
+    as one channel of 48 under a seeded basis: a shape outside that set, so
+    the generic instantiation."""
     _need_cuda()
-    tree = build_scene_tree(depth=5, basis_dim=basis_dim, sh_noise=0.05, seed=1)
-    r = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, device="cuda")
+    tree = (_sg25_tree(5) if fmt == "SG" else build_scene_tree(
+        depth=5, basis_dim=16 if basis_dim == 48 else basis_dim, sh_noise=0.05, seed=1))
+    r = TileRenderer(tree, step_size=1e-4, sigma_thresh=1e-2, stop_thresh=1e-2, tile=tile,
+                     device="cuda")
     _, c2ws, focal = render_synthetic_scene("test", 1, res, True, 2.0, 6.0)
     ti = r.make_tile_inputs_fn(res, res, focal, r.rcap, 16, r.ccap)
     p2 = ti(c2ws[0], r.index["csr"], r.index["base"], r.extra_data, r.index["blk_bbox"])[0]
-    before = K.launches
-    out = K.composite_tiles(*p2, r.index["soa"], **r._kernel_kw)
-    ref = K.composite_tiles_reference(*p2, r.index["soa"], **r._kernel_kw)
+    kw = r._kernel_kw
+    if basis_dim != kw["basis_dim"]:
+        kw = dict(kw, basis_dim=basis_dim, n_channels=3 * kw["basis_dim"] // basis_dim)
+        bas = np.random.default_rng(5).normal(0.0, 0.3, (*p2[9].shape[:2], basis_dim))
+        p2 = (*p2[:9], torch.tensor(bas, dtype=torch.float32, device="cuda"))
+    reg = int(kw["n_channels"] == 3)
+    before, reg_before = K.launches, K.reg_basis_launches
+    out, counts = _composite_traced(p2, r.index["soa"], kw)
+    ref = K.composite_tiles_reference(*p2, r.index["soa"], **kw)
     torch.cuda.synchronize()
-    assert K.launches == before + 1
-    assert torch.isfinite(out).all()
+    assert counts == {"reg_basis": reg}
+    assert (K.launches, K.reg_basis_launches) == (before + 1, reg_before + reg)
+    assert torch.isfinite(out).all() and float(out[..., :3].abs().max()) > 0
     assert float((out - ref).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
+def test_the_forward_runs_two_blocks_per_sm_with_no_spill():
+    """Every register-basis instantiation at tile 16 and runrows 128 fits
+    two blocks of 288 threads on an SM (SG25's too, now that the basis has
+    left its shared memory) without local memory; the generic one keeps
+    the basis in shared memory."""
+    _need_cuda()
+    for bd in (1, 4, 9, 16, 25):
+        occ = K.forward_occupancy(256, bd, 3, 128, 128)
+        smem = 2 * (7 + 3 * bd) * 128 * 4 + 2 * 128 * 32 + 96  # staging, live lists, the rest
+        assert occ["reg_basis"] == 1 and occ["smem_bytes"] == smem, (bd, occ)
+        assert occ["blocks_per_sm"] == 2 and occ["local_bytes"] == 0, (bd, occ)
+        assert occ["registers"] <= 112, (bd, occ)
+    generic = K.forward_occupancy(256, 48, 1, 128, 128)
+    assert generic["reg_basis"] == 0 and generic["smem_bytes"] == 2 * 55 * 512 + 8192 + 96 + 48 * 1024
+    assert generic["local_bytes"] == 0
 
 
 @pytest.mark.gpu

@@ -324,6 +324,33 @@ def test_a_replayed_train_step_keeps_its_spans_and_rows():
     assert [x["counts"]["rows"] for x in trunk] == [B * SC, B * (SC + SF), NPTS]
 
 
+
+@pytest.mark.gpu
+def test_a_replayed_frame_keeps_reg_basis_on_its_composite_span(tree):
+    """On the card the third frame under one key replays the captured frame:
+    kernel #3's span is the replayed phase's own, one under `tile.render`,
+    with the captured launch's `reg_basis` (the SH1 tree: the register-basis
+    instantiation), and the counter of such launches advances by it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from plenoctree_tpu_torch.kernels import tile_composite as K
+
+    r = tile_render.TileRenderer(tree, step_size=1e-4, sigma_thresh=0.01, stop_thresh=0.01,
+                                 grid_c=16, output="u8", device="cuda")
+    c2w = orbit_pose(1.3)
+    for _ in range(2):  # eager, then captured
+        r.render_persp(c2w, RES, RES, FOCAL)
+    before = K.reg_basis_launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        r.render_persp(c2w, RES, RES, FOCAL)
+    torch.cuda.synchronize()
+    assert K.reg_basis_launches == before + 1
+    recs = tracing.window()["records"]
+    (render,) = [x for x in recs if x["name"] == "tile.render"]
+    (comp,) = [x for x in recs if x["name"] == "tile.composite"]
+    assert render["counts"] == {"replays": 1}
+    assert comp["counts"] == {"reg_basis": 1} and comp["parent"] == render["id"]
+
 def test_self_time_on_a_nested_log():
     def rec(i, name, parent, t0, t1, **counts):
         return {"name": name, "id": i, "parent": parent, "request": 7, "t0_ns": t0,
