@@ -1,4 +1,4 @@
-"""Plain reference of the NeRF-SH training step, in float32 PyTorch.
+"""Plain reference of the NeRF-SH training step in PyTorch.
 
 It imports nothing of the program. Given the same initial parameters (a
 dict name -> tensor, kernels [in, out] as flax lays them out), the same
@@ -21,8 +21,10 @@ training loss with PlenOctrees' SH head and sparsity loss, and Adam:
     the step.
 
 Every matrix product runs in float32 with TF32 off, unless `quant` names a
-lower precision for its operands (the control: 'fp8' computes every
-product, forward and backward, from float8 operands with per-tensor scales).
+precision for its operands: 'bf16' rounds the operands of every product,
+forward and backward, to bfloat16 and sums in float32, as a bfloat16 step's
+trunk kernels do; 'fp8' (the control below it) takes them from float8 with
+per-tensor scales.
 """
 
 import math
@@ -61,9 +63,32 @@ class _Fp8MatMul(torch.autograd.Function):
         return qg @ qb.T, qa.T @ qg
 
 
+class _Bf16MatMul(torch.autograd.Function):
+    """a @ b with bfloat16 operands and float32 sums, forward and backward:
+    the products of a bfloat16 training step."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        qa, qb = _bf16(a), _bf16(b)
+        ctx.save_for_backward(qa, qb)
+        return qa @ qb
+
+    @staticmethod
+    def backward(ctx, g):
+        qa, qb = ctx.saved_tensors
+        qg = _bf16(g)
+        return qg @ qb.T, qa.T @ qg
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def _mm(a, b, quant):
     if quant == "fp8":
         return _Fp8MatMul.apply(a, b)
+    if quant == "bf16":
+        return _Bf16MatMul.apply(a, b)
     return a @ b
 
 
@@ -166,18 +191,20 @@ def learning_rate(step, cfg):
 
 def train_steps(params, batches, draws, cfg, quant=None):
     """Adam steps from `params` over the given batches and draws. Returns
-    (losses [steps], first gradients {name: tensor}, parameters after)."""
+    (each step's loss parts [(fine, coarse, sparsity)], first gradients
+    {name: tensor}, parameters after, parameters before each step)."""
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         p = {k: v.detach().clone().float().requires_grad_(True) for k, v in params.items()}
         mu = {k: torch.zeros_like(v) for k, v in p.items()}
         nu = {k: torch.zeros_like(v) for k, v in p.items()}
-        losses, first = [], None
+        losses, first, before = [], None, []
         for step, (batch, dr) in enumerate(zip(batches, draws)):
-            loss, _ = render_loss(p, batch, dr, cfg, quant)
+            before.append({k: v.detach().clone() for k, v in p.items()})
+            loss, parts = render_loss(p, batch, dr, cfg, quant)
             grads = torch.autograd.grad(loss, list(p.values()))
-            losses.append(float(loss.detach()))
+            losses.append(tuple(float(x.detach()) for x in parts))
             if first is None:
                 first = {k: g.detach().clone() for k, g in zip(p, grads)}
             count = step + 1
@@ -188,6 +215,20 @@ def train_steps(params, batches, draws, cfg, quant=None):
                     nu[k].mul_(B2).add_(g.square() * (1 - B2))
                     u = (mu[k] / (1 - B1 ** count)) / ((nu[k] / (1 - B2 ** count)).sqrt() + EPS)
                     v.add_(u * -lr)
-        return losses, first, {k: v.detach() for k, v in p.items()}
+        return losses, first, {k: v.detach() for k, v in p.items()}, before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def step_losses(params_list, batches, draws, cfg, quant=None):
+    """Each step's loss parts [(fine, coarse, sparsity)] at the given
+    parameters (one dict a step), on that step's batch and draws."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            return [tuple(float(x) for x in render_loss(
+                        {k: v.float() for k, v in p.items()}, batch, dr, cfg, quant)[1])
+                    for p, batch, dr in zip(params_list, batches, draws)]
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

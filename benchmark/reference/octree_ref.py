@@ -44,10 +44,14 @@ _SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
           -1.0925484305920792, 0.5462742152960396)
 _SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658, 0.3731763325901154,
           -0.4570457994644658, 1.445305721320277, -0.5900435899266435)
+_SH_C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601, -0.6690465435572892,
+          0.10578554691520431, -0.6690465435572892, 0.47308734787878004, -1.7701307697799304,
+          0.6258357354491761)
 
 
 def sh_basis(deg, d):
-    """Real SH basis up to degree 3 at unit directions d [N, 3] -> [N, (deg+1)^2]."""
+    """Real SH basis up to degree 4 at unit directions d [N, 3] -> [N, (deg+1)^2]
+    (svox's constants and order)."""
     x, y, z = d[:, 0], d[:, 1], d[:, 2]
     out = [torch.full_like(x, _SH_C0)]
     if deg >= 1:
@@ -61,8 +65,14 @@ def sh_basis(deg, d):
                 _SH_C3[2] * y * (4 * zz - xx - yy), _SH_C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
                 _SH_C3[4] * x * (4 * zz - xx - yy), _SH_C3[5] * z * (xx - yy),
                 _SH_C3[6] * x * (xx - 3 * yy)]
-    if deg > 3:
-        raise ValueError("the reference's SH basis stops at degree 3")
+    if deg >= 4:
+        out += [_SH_C4[0] * xy * (xx - yy), _SH_C4[1] * yz * (3 * xx - yy),
+                _SH_C4[2] * xy * (7 * zz - 1), _SH_C4[3] * yz * (7 * zz - 3),
+                _SH_C4[4] * (zz * (35 * zz - 30) + 3), _SH_C4[5] * xz * (7 * zz - 3),
+                _SH_C4[6] * (xx - yy) * (7 * zz - 1), _SH_C4[7] * xz * (xx - 3 * yy),
+                _SH_C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))]
+    if deg > 4:
+        raise ValueError("the reference's SH basis stops at degree 4")
     return torch.stack(out, -1)
 
 

@@ -2,7 +2,8 @@
 
 The blobs are a copy of plenoctree_tpu_torch/data/synthetic.py's constants
 (the port's procedural test scene). The tree they give is the port's
-`build_scene_tree` recipe: the unit tree box covers world [-radius, radius]^3,
+`build_scene_tree` recipe: the unit tree box covers world center +
+[-radius, radius] on each axis (`tree.radius` one number, or one per axis),
 every cell whose region holds a finest-grid cell centre with density above
 `occupied_sigma` is split down to `depth`, and only the cells at the full
 depth carry data. So the cells at the full depth are exactly the finest-grid
@@ -63,8 +64,10 @@ def scene_sigma_rgb(points):
 
 
 def tree_to_world(t, radius, center):
-    """Tree coordinates [0, 1]^3 -> world (the port's N3Tree transform)."""
-    return (t - 0.5) * (2.0 * radius) + torch.as_tensor(center, dtype=t.dtype, device=t.device)
+    """Tree coordinates [0, 1]^3 -> world (the port's N3Tree transform);
+    `radius` is one number or one per axis."""
+    scale = 2.0 * torch.as_tensor(radius, dtype=t.dtype, device=t.device)
+    return (t - 0.5) * scale + torch.as_tensor(center, dtype=t.dtype, device=t.device)
 
 
 def _centres(res, device, x0, x1):

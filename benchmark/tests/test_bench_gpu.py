@@ -1,7 +1,7 @@
 """On the card only (marker `gpu`; skipped without CUDA, decided inside each
-test): every cell runs once through the command the driver uses, with a
-short window, and prints a correct result; the control at a cell's own
-size comes out not correct. Run on the card with
+test): every cell of BENCHMARK.json runs once through `benchmark/run.py`,
+with a short window, and prints a correct result; the control at a cell's
+own size comes out not correct. Run on the card with
 `python -m pytest benchmark/tests -m gpu`."""
 
 import json
@@ -12,7 +12,8 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CELLS = ["sh16-serve-800", "sh16-train-b4096", "sg25-tileopt-800", "sg25-serve-800"]
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    CELLS = [w["name"] for w in json.load(_f)["workloads"]]
 
 
 def _need_cuda():

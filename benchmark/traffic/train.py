@@ -17,18 +17,22 @@ the window's steps over its seconds, from a synchronised start to a
 synchronised end.
 
 Check: set-up drives the step from the seed through its first
-`checked_steps` steps, through the window's own call and feed, then hands
-the same model and optimizer state to the warm-up and the window. After the
-window the reference (benchmark/reference/nerf_ref.py, float32, TF32 off)
-follows those steps from the same initial parameters, batches and draws.
-Compared (benchmark/reference/README in PERF.md): the worst relative gap
-of the steps' losses; per parameter tensor ("leaf"), the gap between the
-norms of the first gradient (the program's from its Adam first moment after
-one step, m / (1 - b1)) and the gap between the norms of the parameters'
-change after the checked steps, each over the larger of the reference's
-norm of that leaf and of the median leaf, worst leaf. Leaves whose
-reference gradient norm is under a thousandth of the median leaf's are left
-out of the change.
+`checked_steps` steps, through the window's own call and feed, keeping the
+parameters each of them started from, then hands the same model and
+optimizer state to the warm-up and the window. After the window the
+reference (benchmark/reference/nerf_ref.py, its products in the precision
+the step runs in: bfloat16 operands and float32 sums for a bfloat16 step,
+else float32; TF32 off) follows those steps from the same initial
+parameters, batches and draws. Compared (PERF.md §2): the worst relative
+gap of the steps' fine and coarse losses, each against the reference's at
+the parameters the program's step started from (two trajectories part by
+rounding, which a fast-falling loss amplifies within two steps); per
+parameter tensor ("leaf"), the gap between the norms of the first gradient
+(the program's from its Adam first moment after one step, m / (1 - b1))
+and the gap between the norms of the parameters' change after the checked
+steps, each over the larger of the reference's norm of that leaf and of the
+median leaf, worst leaf. Leaves whose reference gradient norm is under a
+thousandth of the median leaf's are left out of the change.
 """
 
 import time
@@ -132,11 +136,13 @@ class Driver:
         # The checked steps: through the window's own call and feed.
         self.checked = []
         self.losses = []
+        self.before = []
         for k in range(tr["checked_steps"]):
             batch, draws = self._feed()
             self.checked.append((batch, {n: t.clone() for n, t in draws.items()}))
+            self.before.append({n: p.detach().clone() for n, p in model.named_parameters()})
             stats = self._step(batch, draws)
-            self.losses.append(float(stats.loss + stats.loss_c + stats.loss_sp))
+            self.losses.append((float(stats.loss), float(stats.loss_c)))
             if k == 0:
                 self.g1 = {n: mu.detach().clone() / (1 - B1)
                            for n, mu in self.state.opt_state["mu"].items()}
@@ -199,29 +205,40 @@ class Driver:
 
     def check(self, control=None):
         """[(name, value, limit)]; control='fp8' puts the reference with
-        float8 matrix-product operands in the program's place."""
+        float8 matrix-product operands in the program's place, its own
+        steps' parameters in place of the program's."""
         limits = self.ctx.cell["limits"]
-        mine_losses, mine_g1 = self.losses, self.g1
+        mine_losses, mine_g1, mine_before = self.losses, self.g1, self.before
         mine_change = {k: self.after[k] - self.init[k] for k in self.init}
         self.model = self.state = self.train_step = self.batches = None
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
         batches = [_flat(b) for b, _ in self.checked]
         draws = [d for _, d in self.checked]
-        losses, g1, params = nerf_ref.train_steps(self.init, batches, draws, self.m)
+        # The reference takes its products in the precision the step runs
+        # in (bfloat16 operands and float32 sums, as the trunk's kernels).
+        ref_q = "bf16" if self.cfg.compute_dtype == "bfloat16" else None
+        losses, g1, params, _ = nerf_ref.train_steps(self.init, batches, draws, self.m,
+                                                     quant=ref_q)
         change = {k: params[k] - self.init[k] for k in params}
         if control is not None:
-            mine_losses, mine_g1, p2 = nerf_ref.train_steps(self.init, batches, draws, self.m,
-                                                            quant=control)
+            mine_losses, mine_g1, p2, mine_before = nerf_ref.train_steps(
+                self.init, batches, draws, self.m, quant=control)
             mine_change = {k: p2[k] - self.init[k] for k in p2}
-        step_gaps = [abs(a - b) / abs(b) for a, b in zip(mine_losses, losses)]
-        loss_gap = max(step_gaps)
+        # Each step's fine and coarse losses against the reference's at the
+        # parameters that step started from: two trajectories part by
+        # rounding, which a loss that falls fast amplifies within two steps.
+        at_mine = nerf_ref.step_losses(mine_before, batches, draws, self.m, quant=ref_q)
+        part_gaps = _part_gaps(mine_losses, at_mine)
+        loss_gap = max(max(g) for g in part_gaps)
         gnorm = {k: float(v.norm()) for k, v in g1.items()}
         med = float(np.median(list(gnorm.values())))
         moving = [k for k in g1 if gnorm[k] >= 1e-3 * med]
         grad_gap, grad_leaves = _worst_leaf(mine_g1, g1, list(g1))
         change_gap, change_leaves = _worst_leaf(mine_change, change, moving)
-        self.detail = {"step_loss_gaps": step_gaps, "grad_leaf_gaps": grad_leaves,
+        self.detail = {"step_part_gaps": part_gaps,
+                       "trajectory_part_gaps": _part_gaps(mine_losses, losses),
+                       "grad_leaf_gaps": grad_leaves,
                        "change_leaf_gaps": change_leaves, "grad_norms": gnorm,
                        "left_out": sorted(set(g1) - set(moving))}
         return [("loss_gap", loss_gap, limits["loss_gap"]),
@@ -238,6 +255,11 @@ def _flat(batch):
     rays = batch["rays"]
     return {"pixels": batch["pixels"], "origins": rays.origins, "directions": rays.directions,
             "viewdirs": rays.viewdirs}
+
+
+def _part_gaps(mine, ref):
+    """Per step, |mine - ref| / |ref| of the fine and the coarse loss."""
+    return [[abs(a - b) / abs(b) for a, b in zip(m[:2], r[:2])] for m, r in zip(mine, ref)]
 
 
 def _worst_leaf(mine, ref, names):
